@@ -8,20 +8,31 @@ Phases, each printed on its own lines; any failure raises, so the exit
 code is not 0 and no result line is printed:
 
 1. device — the card's name and power limit (``nvidia-smi``); TF32 off.
-2. build — the hand-written kernel under ``src/repro_torch/csrc`` is
-   compiled by ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``.
+2. build — every hand-written kernel under ``src/repro_torch/csrc`` is
+   compiled by ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``,
+   one ``nvcc`` per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the CPU tests' shapes and at full ``qwen3_4b`` width.
-4. slice — the governed continuous-batching serving path at the full
+   at the CPU tests' shapes and at full model width.
+4. slice 1 — the governed continuous-batching serving path at the full
    width of ``qwen3_4b`` (36 layers, random fp32 weights from a seeded
    ``torch.Generator``): 8 requests through the LogAct agent, one of them
    from a denylisted tenant; launch counts are zeroed just before and read
    just after. The same requests are then served on the plain path on the
    card and the tokens compared. Then the prefill and decode step are
-   timed on the engine, and each kernel is timed at the main path's shape
-   beside its byte/operation bound, its plain version and a PyTorch
+   timed on the engine, and paged attention is timed at the main path's
+   shape beside its byte/operation bound, its plain version and a PyTorch
    library call.
-5. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+5. slice 2 — the governed static-batching serving path at the full width
+   of ``mamba2_780m`` (48 layers, random fp32 weights): 8 requests in two
+   ``serve_batch`` intents, each prefill running the SSD intra-chunk
+   kernel once a layer; launch counts zeroed just before and read just
+   after. A second run under a ``kind_denylist`` policy must abort every
+   intent with no launch; a third on the plain path must give the same
+   tokens, and the full-width prefill's logits are held against the plain
+   path's. Then prefill, decode, memory, a profile, and ``ssd_intra`` at
+   the slice's own inputs beside its bound, its plain version and a
+   yardstick of library calls.
+6. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and last the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -30,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,6 +55,15 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 # main-path geometry (qwen3_4b at full width)
 MAX_BATCH, PAGE_SIZE, NUM_PAGES, MAX_PAGES_PER_SEQ = 4, 16, 257, 64
+KERNELS = ("paged_attention", "ssd_scan")  # the sources under csrc/
+# slice 2 (mamba2_780m, static discipline): requests and their tokens
+SSM_REQUESTS, SSM_NEW_TOKENS, SSM_MAX_BATCH = 8, 16, 4
+# the full-width prefill's logits, kernel vs plain: 48 layers compound the
+# intra-chunk terms' ~1e-6 relative differences
+LOGIT_RTOL = 1e-3
+# its final SSM states (every layer): atol STATE_TOL x max|state| plus
+# rtol STATE_TOL
+STATE_TOL = 1e-4
 
 
 def _smi() -> str:
@@ -231,17 +252,442 @@ def serve(cfg, params, requests, use_kernel: bool):
                 n_aborts=n_aborts)
 
 
+def _ssd_case(rng, b, nc, q, h, p, g, n, a=None):
+    """SSD inputs on the card: x, B, C normal; dt = softplus(normal), as
+    the model draws it at dt_bias 0; A from the reference's tests or a
+    constant (A = -1 is the model's, A_log = 0)."""
+    import numpy as np
+    import torch
+    f = np.float32
+    x = rng.standard_normal((b, nc, q, h, p)).astype(f)
+    dt = np.logaddexp(rng.standard_normal((b, nc, q, h)), 0.0).astype(f)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(f) if a is None \
+        else np.full(h, a, f)
+    B = (rng.standard_normal((b, nc, q, g, n)) * 0.3).astype(f)
+    C = (rng.standard_normal((b, nc, q, g, n)) * 0.3).astype(f)
+    return [torch.from_numpy(t).cuda() for t in (x, dt, A, B, C)]
+
+
+def check_ssd_intra():
+    """Phase 3: the SSD kernel against its plain version on the card.
+    Tolerance: atol = rtol = KERNEL_TOL at the test shapes (the
+    reference's kernel-vs-oracle tolerance); at full width rtol =
+    KERNEL_TOL with atol = KERNEL_TOL x max|plain| per output."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    rng = np.random.default_rng(SEED)
+    cases = [  # (label, shape, A, full width)
+        ("test b1", dict(b=1, nc=3, q=16, h=4, p=8, g=4, n=16), None, False),
+        ("test b2", dict(b=2, nc=2, q=32, h=8, p=16, g=8, n=32), None, False),
+        ("test q64", dict(b=1, nc=1, q=64, h=2, p=64, g=2, n=64), None,
+         False),
+        ("G<H 2/8", dict(b=2, nc=2, q=32, h=8, p=16, g=2, n=32), None, False),
+        ("full width, A=-1", dict(b=4, nc=3, q=256, h=48, p=64, g=1, n=128),
+         -1.0, True),
+    ]
+    worst = 0.0
+    for label, shape, a, full in cases:
+        case = _ssd_case(rng, **shape, a=a)
+        out = ssd_intra(*case)
+        torch.cuda.synchronize()
+        ref = ssd_intra_plain(*case)
+        errs = []
+        for name, got, want in zip(("y", "states", "decay"), out, ref):
+            atol = KERNEL_TOL * (want.abs().max().item() if full else 1.0)
+            err = (got - want).abs()
+            errs.append(err.max().item())
+            if not (torch.isfinite(got).all() and torch.all(
+                    err <= atol + KERNEL_TOL * want.abs())):
+                raise AssertionError(
+                    f"ssd_intra {label} {name}: max abs err {errs[-1]} "
+                    f"over atol {atol} + rtol {KERNEL_TOL}, or not finite")
+        print(f"  ssd_intra {label}: x {tuple(case[0].shape)} b/c "
+              f"{tuple(case[3].shape)} max abs err y/states/decay "
+              + "/".join(f"{e:.3e}" for e in errs)
+              + f" (rtol {KERNEL_TOL}, atol {KERNEL_TOL}"
+              + (" x max|plain|)" if full else ")"))
+        worst = max(worst, *errs)
+    return worst
+
+
+def time_ssd_intra(case, flush):
+    """Kernel, plain version, bound and a yardstick of library calls at
+    one input set (x (B,NC,Q,H,P), dt, a, b/c (B,NC,Q,G,N)). No single
+    PyTorch call computes ssd_intra, so ``library_ms`` is None."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    x, dt, a, b, c = case
+    bsz, nc, q, h, p = x.shape
+    g, n = b.shape[3], b.shape[4]
+    ms = _time_ms(lambda: ssd_intra(*case), flush)
+    plain_ms = _time_ms(lambda: ssd_intra_plain(*case), flush)
+    # the least work, 2 FLOPs per MAC: per (row, chunk) the lower triangle
+    # (u <= t) of C B^T once per group (all the group's heads share it),
+    # and per head the lower triangle of W x and the state product.
+    # Bytes: every input read once (B/C once per group), every output
+    # written once.
+    tri_n = q * (q + 1) // 2
+    n_ops = 2 * bsz * nc * (g * tri_n * n + h * (tri_n * p + q * p * n))
+    n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
+                   + c.numel() + bsz * nc * h * p * n + bsz * nc * h)
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_FP32_FLOP_S * 1e3
+    # yardstick only (no single library call computes ssd_intra): the two
+    # batched matmuls of the intra-chunk products with the mask, dt and
+    # decay applied between them, on inputs laid out beforehand
+    rep = h // g
+    xt = x.permute(0, 1, 3, 2, 4).contiguous()             # (B,NC,H,Q,P)
+    bt = b.permute(0, 1, 3, 4, 2).contiguous()             # (B,NC,G,N,Q)
+    ct = c.permute(0, 1, 3, 2, 4).contiguous()             # (B,NC,G,Q,N)
+    cs = torch.cumsum(dt * a, dim=2).permute(0, 1, 3, 2)   # (B,NC,H,Q)
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    mask = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                       0.0) * dt.permute(0, 1, 3, 2)[..., None, :]
+    mask = mask.reshape(bsz, nc, g, rep, q, q).contiguous()
+    xt = xt.reshape(bsz, nc, g, rep, q, p)
+
+    def yardstick():
+        cb = torch.matmul(ct, bt)                          # (B,NC,G,Q,Q)
+        return torch.matmul(cb[:, :, :, None] * mask, xt)
+    yardstick_ms = _time_ms(yardstick, flush)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=None, yardstick_ms=yardstick_ms, flop=n_ops,
+                bytes=n_bytes)
+
+
+def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
+    """Phase 5: one governed run of the static serving agent on the card,
+    a RuleVoter on STANDARD_RULES, ``policy`` on its scope. The SSD
+    kernel's count is zeroed just before the run and read just after."""
+    import torch
+    from repro_torch.core.acl import BusClient
+    from repro_torch.core.entries import PayloadType
+    from repro_torch.core.voter import STANDARD_RULES, RuleVoter
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_intra
+    from repro_torch.serving.server import build_serving_agent
+    agent = build_serving_agent(cfg, max_batch=SSM_MAX_BATCH,
+                                use_kernel=use_kernel, device="cuda")
+    agent.executor.env.params = params
+    agent.executor.env.max_new_tokens = SSM_NEW_TOKENS
+    agent.add_voter(RuleVoter(BusClient(agent.bus, "v-rule", "voter"),
+                              rules=STANDARD_RULES), from_tail=False)
+    agent.set_policy("decider", {"mode": "first_voter"})
+    if policy:
+        agent.set_policy("voter:rule", policy)
+    for r in requests:
+        agent.send_mail(f"request {r['req_id']}", **r)
+    torch.cuda.synchronize()
+    ssd_intra.launches = paged_attention.launches = 0
+    t0 = time.perf_counter()
+    agent.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, paged_launches = ssd_intra.launches, paged_attention.launches
+    log = agent.external_client("smoke", "admin").read(0)
+    by = {t: [e.body for e in log if e.type == t] for t in PayloadType}
+    intents = [b for b in by[PayloadType.INTENT]
+               if b["kind"] == "serve_batch"]
+    results = {b["intent_id"]: b for b in by[PayloadType.RESULT]}
+    tokens, batches = {}, []
+    for b in intents:  # the executed batches, in the planner's order
+        r = results.get(b["intent_id"])
+        if r and r["ok"]:
+            tokens.update(zip(r["value"]["req_ids"],
+                              r["value"]["generated"]))
+            batches.append((r["value"]["req_ids"],
+                            r["value"]["prefill_len"]))
+    return dict(wall=wall, launches=launches, paged_launches=paged_launches,
+                intents=intents, results=results, tokens=tokens,
+                batches=batches,
+                commits={b["intent_id"] for b in by[PayloadType.COMMIT]},
+                aborts={b["intent_id"] for b in by[PayloadType.ABORT]})
+
+
+def _batch_tokens(run, requests):
+    """The governed run's batches, each as (req_ids, tokens): the req_ids
+    and padded length come from the batch's Result, the tokens from the
+    serving path's own padding."""
+    from repro_torch.serving.server import pad_prompts
+    prompts = {r["req_id"]: r["prompt_tokens"] for r in requests}
+    out = []
+    for rids, plen in run["batches"]:
+        toks = pad_prompts([prompts[r] for r in rids])
+        if toks.shape[1] != plen:
+            raise AssertionError(f"batch {rids}: padded to {toks.shape[1]}"
+                                 f", the Result says {plen}")
+        out.append((rids, toks))
+    return out
+
+
+def _final_states(model, params, tokens):
+    """Logits (real vocab) and the per-layer final SSM states of one
+    prefill."""
+    logits, cache = model.prefill(params, {"tokens": tokens})
+    return logits[..., :model.cfg.vocab], cache["ssm"]["state"]
+
+
+def _top2_margin(model, params, toks, row, pos, tokens_so_far):
+    """Top-1 minus top-2 logit of ``row`` at decoded position ``pos`` on
+    the plain path, feeding the plain path's own tokens."""
+    import torch
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(
+        toks).cuda()})
+    for t in range(pos):
+        tok = torch.tensor([[r[t]] for r in tokens_so_far], device="cuda")
+        logits, cache = model.decode_step(params, cache, tok,
+                                          toks.shape[1] + t)
+    top = torch.topk(logits[row, -1], 2).values
+    return (top[0] - top[1]).item()
+
+
+def slice_mamba2(smi):
+    """Phase 5: governed static serving of full-width mamba2_780m.
+    Returns the SSD kernel's launch count of the governed kernel run and
+    its timing at the slice's own inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("mamba2_780m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    s = cfg.ssm
+    print(f"[slice 2] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, inner {s.expand * cfg.d_model}, "
+          f"{s.expand * cfg.d_model // s.head_dim} heads x {s.head_dim}, "
+          f"d_state {s.d_state}, groups {s.n_groups}, chunk {s.chunk}, "
+          f"vocab {cfg.vocab}; {n_params} fp32 params ({cfg.n_params()} "
+          f"by the config's count) from torch.Generator seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED + 2)
+    requests = [{"req_id": f"req-{i}",
+                 "prompt_tokens": rng.integers(
+                     0, cfg.vocab, size=int(rng.integers(64, 701))).tolist()}
+                for i in range(SSM_REQUESTS)]
+    print(f"  requests (prompt len): " + ", ".join(
+        f"{r['req_id']}({len(r['prompt_tokens'])})" for r in requests)
+        + f"; {SSM_NEW_TOKENS} new tokens each")
+
+    run = serve_static(cfg, params, requests, use_kernel=True)
+    batches = _batch_tokens(run, requests)
+    print("  batches (req_ids, padded len): " + "; ".join(
+        f"{','.join(rids)} ({t.shape[1]})" for rids, t in batches))
+    ids = [b["intent_id"] for b in run["intents"]]
+    want_launches = len(run["results"]) * cfg.n_layers
+    print(f"  kernel run: serve_batch intents {len(ids)}, committed "
+          f"{len(run['commits'] & set(ids))}, ok results "
+          f"{sum(b['ok'] for b in run['results'].values())}, served "
+          f"{len(run['tokens'])}; ssd_intra launches {run['launches']} "
+          f"(want {len(run['results'])} executed x {cfg.n_layers} = "
+          f"{want_launches}); wall {run['wall']:.3f} s")
+    if len(ids) != 2 or not set(ids) <= run["commits"] or run["aborts"] \
+            or set(run["results"]) != set(ids) \
+            or not all(b["ok"] for b in run["results"].values()):
+        raise AssertionError("want two serve_batch intents, both committed "
+                             "with an ok Result")
+    if sorted(run["tokens"]) != sorted(r["req_id"] for r in requests):
+        raise AssertionError("not every request was served")
+    if run["launches"] != want_launches or run["paged_launches"]:
+        raise AssertionError("the prefills did not each launch the SSD "
+                             "kernel once a layer")
+    for rid, toks in run["tokens"].items():
+        if len(toks) != SSM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{rid}: bad tokens {toks}")
+    launches = run["launches"]
+    n_tokens = len(requests) * SSM_NEW_TOKENS
+    print(f"  governed kernel run: {n_tokens} tokens in {run['wall']:.3f} s "
+          f"= {n_tokens / run['wall']:.2f} tokens/s end to end "
+          f"(prefill + decode + governance) on {smi}")
+
+    deny = serve_static(cfg, params, requests, use_kernel=True,
+                        policy={"kind_denylist": ["serve_batch"]})
+    dids = {b["intent_id"] for b in deny["intents"]}
+    print(f"  denylisted run: serve_batch intents {len(dids)}, aborted "
+          f"{len(deny['aborts'] & dids)}, committed "
+          f"{len(deny['commits'] & dids)}, results {len(deny['results'])}, "
+          f"ssd_intra launches {deny['launches']}")
+    if not dids or deny["aborts"] != dids or deny["commits"] \
+            or deny["results"] or deny["launches"]:
+        raise AssertionError("the denylisted intents were not all stopped "
+                             "before execution")
+
+    ref = serve_static(cfg, params, requests, use_kernel=False)
+    if ref["launches"] != 0:
+        raise AssertionError("the plain run launched the kernel")
+    for rids, toks in batches:
+        for row, rid in enumerate(rids):
+            got, want = run["tokens"][rid], ref["tokens"][rid]
+            if got != want:
+                pos = next(i for i, (u, v) in enumerate(zip(got, want))
+                           if u != v)
+                margin = _top2_margin(
+                    Model(cfg, use_kernel=False), params, toks, row, pos,
+                    [ref["tokens"][r] for r in rids])
+                raise AssertionError(
+                    f"kernel vs plain tokens differ: {rid} first at decoded "
+                    f"position {pos} ({got[pos]} vs {want[pos]}); the plain "
+                    f"path's top-2 logit margin there is {margin}")
+    print(f"  plain run on the card: identical tokens for all "
+          f"{len(ref['tokens'])} requests; wall {ref['wall']:.3f} s; e.g. "
+          + "; ".join(f"{r['req_id']} (last prompt token "
+                      f"{r['prompt_tokens'][-1]}): {run['tokens'][r['req_id']]}"
+                      for r in requests[:2]))
+
+    # the full-width prefill, kernel vs plain: the logits and every
+    # layer's final SSM state. Two broken controls on the plain path (the
+    # intra-chunk y zeroed; the chunk states zeroed) show that the limits
+    # catch a wrong SSD path.
+    kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
+    rids, toks = max(batches, key=lambda bt: bt[1].shape[1])
+    tok_t = torch.from_numpy(toks).cuda()
+    kl, ks = _final_states(kmodel, params, tok_t)
+    pl, ps = _final_states(pmodel, params, tok_t)
+    lmax, smax = pl.abs().max().item(), ps.abs().max().item()
+
+    def gaps(logits, states):
+        """Max abs diff from the plain path of the logits and the states,
+        and whether each is within its limit."""
+        lerr = (logits - pl).abs().max().item()
+        serr = (states - ps).abs()
+        return (lerr, serr.max().item(), lerr <= LOGIT_RTOL * lmax,
+                bool(torch.all(serr <= STATE_TOL * (smax + ps.abs()))))
+
+    def broken(out):
+        def intra(*args):
+            y, states, decay = ssd_intra_plain(*args)
+            return ((torch.zeros_like(y), states, decay) if out == "y"
+                    else (y, torch.zeros_like(states), decay))
+        return intra
+    kgap = gaps(kl, ks)
+    controls = {}
+    for out in ("y", "states"):
+        ssm_lib.ssd_intra_plain = broken(out)
+        try:
+            controls[out] = gaps(*_final_states(pmodel, params, tok_t))
+        finally:
+            ssm_lib.ssd_intra_plain = ssd_intra_plain
+    print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|state|"
+          f" {smax:.4e}; limits: logits {LOGIT_RTOL} x max|logit|, states "
+          f"{STATE_TOL} x max|state| + rtol {STATE_TOL}")
+    for label, (lerr, serr, lok, sok) in [("kernel", kgap)] + [
+            (f"control, plain with {o} zeroed", g)
+            for o, g in controls.items()]:
+        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
+              f"({'within' if lok else 'over'} the limit), final states "
+              f"{serr:.4e} ({'within' if sok else 'over'} the limit)")
+    if not (torch.isfinite(kl).all() and torch.isfinite(ks).all()
+            and kgap[2] and kgap[3]):
+        raise AssertionError("full-width prefill: kernel vs plain logits or "
+                             "final states over the limit, or not finite")
+    if any(g[3] for g in controls.values()):
+        raise AssertionError("a broken SSD path passed the final states' "
+                             "limit: the check has no power")
+    del kl, ks, pl, ps, run, deny, ref
+
+    # timings on the model itself (kernel path) at the slice's shapes
+    model = kmodel
+    prefill_ms = []
+    for _, bt in batches:
+        bt_t = torch.from_numpy(bt).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": bt_t})
+        torch.cuda.synchronize()
+        prefill_ms.append((bt.shape, (time.perf_counter() - t0) * 1e3))
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    plen = bt.shape[1]
+    logits, cache = model.decode_step(params, cache, tok, plen)  # warm
+    n_steps = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        logits, cache = model.decode_step(params, cache, tok, plen + 1 + i)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    rows = bt.shape[0]
+    print(f"  prefill ms per batch ((rows, padded len), ms): "
+          + ", ".join(f"({tuple(sh)}, {ms:.2f})" for sh, ms in prefill_ms)
+          + f" | decode step {step_ms:.2f} ms for {rows} rows = "
+          f"{rows * 1e3 / step_ms:.2f} tokens/s | peak memory "
+          f"{torch.cuda.max_memory_allocated()} B | on {smi}")
+
+    holder = {"cache": cache}
+
+    def one_prefill():
+        holder["cache"] = model.prefill(params, {"tokens": bt_t})[1]
+
+    def one_decode():
+        holder["cache"] = model.decode_step(params, holder["cache"], tok,
+                                            plen)[1]
+    _profile(f"one prefill {tuple(bt.shape)}", [one_prefill], 1)
+    _profile(f"three decode steps at {rows} rows", [one_decode] * 3, 3)
+    del holder, cache
+
+    # the kernel at the slice's own inputs: layer 0's SSD in the prefill
+    # of the longest batch (captured from the path, launched outside the
+    # counted run)
+    captured = []
+
+    def capture(*args):
+        if not captured:
+            captured.append([t.clone() for t in args])
+        return ssd_intra(*args)
+    ssm_lib.ssd_intra = capture
+    try:
+        model.prefill(params, {"tokens": tok_t})
+    finally:
+        ssm_lib.ssd_intra = ssd_intra
+    case = captured[0]
+    del captured
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    t = time_ssd_intra(case, flush)
+    print(f"  ssd_intra at the slice's shape x {tuple(case[0].shape)} b/c "
+          f"{tuple(case[3].shape)} (layer 0 of the {tuple(toks.shape)} "
+          f"prefill): kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms,"
+          f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flop']} "
+          f"FLOP, {t['bytes']} B), yardstick (two batched matmuls with the "
+          f"mask between) {t['yardstick_ms']:.4f} ms | kernel at "
+          f"{t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
+    for k in ("flop", "bytes", "yardstick_ms"):
+        t.pop(k)
+    return {"launches": launches, "timing": t}
+
+
+def build_kernels():
+    """Phase 2: one nvcc per source, all started together; then load."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.paged_attention import _kernel_fn as paged_fn
+    from repro_torch.kernels.ssd_scan import _kernel_fn as ssd_fn
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(cuda_lib.build, KERNELS)))
+    paged_fn()
+    ssd_fn()
+    print(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} built in "
+          f"parallel and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card; the port's smoke run needs one")
-    import numpy as np
-    from repro_torch.configs.base import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import cuda_lib
-    from repro_torch.kernels.paged_attention import _kernel_fn
-    from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import PagedEngine
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -253,20 +699,51 @@ def main() -> None:
           f"{torch.backends.cudnn.allow_tf32}")
 
     # 2. build
-    t0 = time.perf_counter()
-    build_log = cuda_lib.build("paged_attention")
-    _kernel_fn()
-    print(f"[build] paged_attention.cu built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_kernels()
 
-    # 3. kernel against its plain version
+    # 3. each kernel against its plain version
     print("[kernels] paged_attention vs paged_attention_plain on the card")
-    max_err = check_paged_attention()
+    paged_err = check_paged_attention()
+    print("[kernels] ssd_intra vs ssd_intra_plain on the card")
+    ssd_err = check_ssd_intra()
 
-    # 4. the slice: governed serving at full qwen3_4b width
+    # 4. slice 1: governed continuous serving at full qwen3_4b width
+    paged = slice_qwen3(smi)
+    torch.cuda.empty_cache()
+
+    # 5. slice 2: governed static serving at full mamba2_780m width
+    ssd = slice_mamba2(smi)
+
+    # 6. result lines
+    kernels = [{"name": "paged_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/paged_attention.cu",
+                "replaces": "src/repro/kernels/paged_attention.py:45",
+                "launches": paged["launches"], "max_abs_err": paged_err,
+                **paged["timing"]},
+               {"name": "ssd_intra", "route": "cuda",
+                "source": "src/repro_torch/csrc/ssd_scan.cu",
+                "replaces": "src/repro/kernels/ssd_scan.py:27",
+                "launches": ssd["launches"], "max_abs_err": ssd_err,
+                **ssd["timing"]}]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+def slice_qwen3(smi):
+    """Phase 4: governed continuous serving of full-width qwen3_4b.
+    Returns the paged-attention launch count of the governed kernel run
+    and the kernel's timing at the main path's shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_intra
+    from repro_torch.models.params import init_params
+    from repro_torch.serving.engine import PagedEngine
+
     cfg = get_config("qwen3_4b")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -274,7 +751,7 @@ def main() -> None:
         SEED), "cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"[slice] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+    print(f"[slice 1] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} fp32 params from "
           f"torch.Generator seed {SEED} in {time.perf_counter() - t0:.2f} s")
@@ -286,6 +763,7 @@ def main() -> None:
         f"{', blocked' if r['tenant'] == 'blocked' else ''})"
         for r in requests))
 
+    ssd_intra.launches = 0
     run = serve(cfg, params, requests, use_kernel=True)
     pl, eng = run["planner"], run["engine"]
     want_launches = eng.n_steps * cfg.n_layers
@@ -304,6 +782,8 @@ def main() -> None:
     if run["launches"] != want_launches or want_launches == 0:
         raise AssertionError("the decode steps did not all go through the "
                              "kernel")
+    if ssd_intra.launches:
+        raise AssertionError("the dense path launched the SSD kernel")
     for rid, toks in pl.outputs.items():
         if len(toks) != served[rid]["max_new_tokens"] or not all(
                 0 <= t < cfg.vocab for t in toks):
@@ -354,28 +834,7 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated()} B | on {smi}")
 
     # where a decode step's device time goes (torch.profiler, CUPTI)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            eng.step()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side kernel events only: an aten op's device time repeats
-    # the time of the kernels it launched
-    rows = [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    print(f"  profile of {n_prof} decode steps: wall {prof_wall_ms:.2f} ms "
-          f"(profiler on), device busy {busy_ms:.2f} ms = "
-          f"{100 * busy_ms / prof_wall_ms:.1f}% | top kernels per step:")
-    for dev_us, key, count in sorted(rows, reverse=True)[:10]:
-        print(f"    {dev_us / 1e3 / n_prof:9.3f} ms  x{count // n_prof:<5d} "
-              f"{key[:90]}")
+    _profile("decode steps", [eng.step] * 3, 3)
 
     # the kernel timed at this decode step's own inputs (layer 0's arena)
     lanes = list(eng.lanes)
@@ -403,20 +862,36 @@ def main() -> None:
           f"{tf['ms']:.4f} ms, plain {tf['plain_ms']:.4f} ms, bound "
           f"{tf['bound_ms']:.4f} ms ({tf['bound_by']}), sdpa on "
           f"pre-gathered K/V {tf['library_ms']:.4f} ms | on {smi}")
+    t.pop("ctx")
+    return {"launches": launches, "timing": t}
 
-    # 5. result lines
-    kernels = [{"name": "paged_attention", "route": "cuda",
-                "source": "src/repro_torch/csrc/paged_attention.cu",
-                "replaces": "src/repro/kernels/paged_attention.py:45",
-                "launches": launches, "max_abs_err": max_err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["library_ms"]}]
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}))
+
+def _profile(label, calls, n_rep):
+    """torch.profiler (CUPTI) over ``calls``: wall time, device busy time
+    and the top kernels by device time per repetition."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernel events only: an aten op's device time repeats
+    # the time of the kernels it launched
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    print(f"  profile of {label}: wall {wall_ms:.2f} ms (profiler on), "
+          f"device busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% | "
+          f"top kernels per {'repetition' if n_rep > 1 else 'run'}:")
+    for dev_us, key, count in sorted(rows, reverse=True)[:10]:
+        print(f"    {dev_us / 1e3 / n_rep:9.3f} ms  "
+              f"x{max(count // n_rep, 1):<5d} {key[:90]}")
 
 
 def _leaves(tree):

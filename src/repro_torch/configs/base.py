@@ -4,7 +4,8 @@ Every assigned architecture is a module ``repro_torch.configs.<arch_id>``
 exposing ``CONFIG`` (exact paper/HF numbers) and the registry maps
 ``--arch`` ids to them. ``smoke()`` returns a reduced same-family config
 for CPU tests. The port carries only the architectures it serves so far
-(``qwen3_4b``); ``get_config`` of another id raises ``ModuleNotFoundError``.
+(``qwen3_4b``, ``mamba2_780m``); ``get_config`` of another id raises
+``ModuleNotFoundError``.
 """
 from __future__ import annotations
 

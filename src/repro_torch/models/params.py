@@ -7,11 +7,13 @@ transposed layouts, so one set of values runs on both sides.
 
 * ``params_from_numpy`` carries a tree of numpy arrays (for example the
   reference's parameters, converted leaf by leaf) into torch losslessly.
-* ``init_params`` is the port's own initializer. It follows the
-  reference's rule: normal times ``1/sqrt(shape[-2])`` (so ``wq``'s scale
-  comes from ``H``, not ``D``), the embedding at scale 1.0, norms at zero.
-  Its numbers differ from the reference's (another generator); only the
-  rule and the tree are the same.
+* ``init_params`` is the port's own initializer, for the dense and the
+  ssm families. It follows the reference's rule: normal times
+  ``1/sqrt(shape[-2])`` (so ``wq``'s scale comes from ``H``, not ``D``),
+  the embedding at scale 1.0, norms at zero; mamba's ``conv_w`` at scale
+  0.5, ``A_log`` and ``dt_bias`` at zero, ``D`` at one. Its numbers differ
+  from the reference's (another generator); only the rule and the tree
+  are the same.
 """
 from __future__ import annotations
 
@@ -71,12 +73,28 @@ def _init_mlp(cfg: ArchConfig, L: int, g, device) -> Dict[str, torch.Tensor]:
     return p
 
 
+def _init_mamba(cfg: ArchConfig, L: int, g, device
+                ) -> Dict[str, torch.Tensor]:
+    s = cfg.ssm
+    D = cfg.d_model
+    inner = s.expand * D
+    nheads = inner // s.head_dim
+    gn = s.n_groups * s.d_state
+    return {"w_in": _normal((L, D, 2 * inner + 2 * gn + nheads), g, device),
+            "conv_w": _normal((L, inner + 2 * gn, s.d_conv), g, device, 0.5),
+            "A_log": _zeros((L, nheads), device),     # log(1): A = -1
+            "D": torch.ones((L, nheads), device=device, dtype=torch.float32),
+            "dt_bias": _zeros((L, nheads), device),
+            "norm": _zeros((L, inner), device),
+            "w_out": _normal((L, inner, D), g, device)}
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device) -> Dict[str, Any]:
-    """The dense decoder's fp32 parameter tree (reference
-    ``Model._init_tree`` for the dense family). ``generator`` must live
-    on ``device``."""
-    if cfg.family != "dense":
+    """The fp32 parameter tree of a dense or ssm model (reference
+    ``Model._init_tree`` for those families). ``generator`` must live on
+    ``device``."""
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"init_params: family {cfg.family!r} is "
                                   f"not ported yet")
     L, D, V = cfg.n_layers, cfg.d_model, padded_vocab(cfg.vocab)
@@ -86,6 +104,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         p["lm_head"] = _normal((D, V), generator, device)
     if cfg.pos_embedding == "learned":
         p["pos_embed"] = _normal((1 << 15, D), generator, device, 0.02)
+    if cfg.family == "ssm":
+        p["layers"] = {"ln1": _zeros((L, D), device),
+                       "mamba": _init_mamba(cfg, L, generator, device)}
+        return p
     p["layers"] = {"ln1": _zeros((L, D), device),
                    "ln2": _zeros((L, D), device),
                    "attn": _init_attn(cfg, L, generator, device),

@@ -1,32 +1,173 @@
-"""LogAct-governed continuous-batching serving: generation requests
-through the Intent -> Vote -> Commit -> Execute machinery.
+"""LogAct-governed serving: batched generation requests through the
+Intent -> Vote -> Commit -> Execute machinery.
 
-Requests arrive as ``Mail`` entries. The planner is a step-level scheduler
-over the paged decode engine (``serving/engine.py``): every intent covers
-one single-token decode step plus the admissions joining it, so new
-requests merge into the in-flight batch at the next step. Each admission
-rides in the intent ``args`` — visible to voters *before* any prefill runs
-— which turns the paper's intent-before-execution hook into admission
-control: per-tenant denylists/quotas and queue-depth bounds are ordinary
-``RuleVoter`` rules (``SERVE_ADMISSION_RULES``), and a vetoed admission is
-re-proposed solo once and then dropped as rejected.
+Requests arrive as ``Mail`` entries. Two serving disciplines share this
+module, as in the reference:
 
-The planner and the rules are pure Python, carried over unchanged from the
-reference. The static discipline (``ServeEnv`` / ``h_serve_batch`` /
-``ServePlanner``) and the kernel spawn image are not ported yet.
+* **Static batching** (``ServePlanner`` / ``serve_batch``): all pending
+  mail becomes ONE closed-loop generation intent; requests arriving
+  mid-generation wait for the whole batch to finish. ``h_serve_batch``
+  runs ``Model.prefill`` and ``Model.decode_step`` (the ssm family in the
+  port), with the reference's quirks kept: prompts are left-padded with
+  token 0 (which an SSM does not mask), optional ``pad_batch`` dummy rows
+  are dropped from the result, and the argmax runs over the padded vocab.
+
+* **Continuous batching** (``ContinuousServePlanner`` / ``serve_step``):
+  the planner is a step-level scheduler over the paged decode engine
+  (``serving/engine.py``): every intent covers one single-token decode
+  step plus the admissions joining it, so new requests merge into the
+  in-flight batch at the next step. Each admission rides in the intent
+  ``args`` — visible to voters *before* any prefill runs — which turns
+  the paper's intent-before-execution hook into admission control:
+  per-tenant denylists/quotas and queue-depth bounds are ordinary
+  ``RuleVoter`` rules (``SERVE_ADMISSION_RULES``), and a vetoed admission
+  is re-proposed solo once and then dropped as rejected.
+
+The planners and the rules are pure Python, carried over unchanged from
+the reference. The kernel spawn image is not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..configs.base import ArchConfig
 from ..core.agent import LogActAgent
 from ..core.driver import Planner
 from ..core.voter import VoteDecision
 from ..device import resolve_device
+from ..models.model import Model
+from ..models.params import init_params
 from .engine import PagedEngine
 
+
+@dataclass
+class ServeEnv:
+    """Executor environment of the static discipline: the model and its
+    parameters, drawn at the first ``serve_batch`` unless given. The
+    reference's jitted ``prefill_fn`` / ``decode_fn`` have no counterpart:
+    the model's methods run eagerly."""
+
+    model: Model
+    params: Any = None
+    max_new_tokens: int = 16
+    device: Any = None
+
+    def ensure_initialized(self, seed: int = 0) -> None:
+        if self.params is None:
+            dev = resolve_device(self.device)
+            self.params = init_params(
+                self.model.cfg, torch.Generator(device=dev).manual_seed(seed),
+                dev)
+
+
+def pad_prompts(prompts, pad_batch: Optional[int] = None) -> np.ndarray:
+    """The static batch's tokens (rows, longest prompt): each prompt
+    left-padded with token 0, then dummy all-0 rows up to ``pad_batch``
+    (the reference pads so that every batch hits one compiled shape)."""
+    prompts = [np.asarray(p, np.int64) for p in prompts]
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((max(len(prompts), int(pad_batch or 0)), plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    return toks
+
+
+def h_serve_batch(args: Dict[str, Any], env: ServeEnv) -> Dict[str, Any]:
+    env.ensure_initialized()
+    new_tokens = int(args.get("max_new_tokens", env.max_new_tokens))
+    bsz = len(args["prompts"])
+    toks = pad_prompts(args["prompts"], args.get("pad_batch"))
+    plen = toks.shape[1]
+    cfg = env.model.cfg
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(f"h_serve_batch: the {cfg.family} "
+                                  f"frontend is not ported yet")
+    dev = env.params["embed"].device
+    logits, cache = env.model.prefill(
+        env.params, {"tokens": torch.from_numpy(toks).to(dev)},
+        extra_cache=new_tokens)
+    # argmax over the padded vocab (pad logits are -1e30)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    out = [tok]
+    # position of the first decoded token = the prefilled length
+    for t in range(new_tokens - 1):
+        logits, cache = env.model.decode_step(env.params, cache, tok,
+                                              plen + t)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    gen = torch.cat(out, dim=1).cpu().numpy()[:bsz]  # drop pad rows
+    res = {"generated": gen.tolist(), "batch": bsz,
+           "prefill_len": plen, "new_tokens": new_tokens}
+    if "req_ids" in args:  # per-request attribution
+        res["req_ids"] = list(args["req_ids"])
+    return res
+
+
+SERVE_HANDLERS = {"serve_batch": h_serve_batch}
+
+
+class ServePlanner(Planner):
+    """Batches all pending request mail into one serve_batch intention."""
+
+    def __init__(self, max_batch: int = 8,
+                 pad_batch: Optional[int] = None):
+        self.max_batch = max_batch
+        self.pad_batch = pad_batch
+        self.served: int = 0
+        self._req_n = 0
+
+    def propose(self, context: Dict[str, Any]) -> Dict[str, Any]:
+        pending: List[Dict[str, Any]] = []
+        for m in context.get("mail", []):
+            if "prompt_tokens" in m:
+                pending.append(m)
+        # also pick up requests that arrived while we were executing
+        for h in context.get("history", []):
+            if h.get("role") == "mail" and "prompt_tokens" in h["body"] \
+                    and not h["body"].get("_served"):
+                pending.append(h["body"])
+        if not pending:
+            return {"done": True, "note": "queue empty"}
+        batch = pending[: self.max_batch]
+        rids = []
+        for b in batch:
+            b["_served"] = True
+            rids.append(b.get("req_id") or f"req-{self._req_n}")
+            self._req_n += 1
+        self.served += len(batch)
+        args: Dict[str, Any] = {"prompts": [b["prompt_tokens"]
+                                            for b in batch],
+                                "req_ids": rids}
+        if self.pad_batch:
+            args["pad_batch"] = self.pad_batch
+        return {"intent": {"kind": "serve_batch", "args": args},
+                "note": f"serving batch of {len(batch)}"}
+
+
+def build_serving_agent(cfg: ArchConfig, *, bus=None, voters=(),
+                        max_batch: int = 8,
+                        pad_batch: Optional[int] = None,
+                        agent_id: str = "server", use_kernel: bool = True,
+                        device=None) -> LogActAgent:
+    """A governed static-batching serving agent. ``device=None`` means the
+    card and raises without CUDA; the parameters are drawn at the first
+    ``serve_batch`` unless set on ``agent.executor.env.params`` before."""
+    env = ServeEnv(model=Model(cfg, dtype=torch.float32,
+                               use_kernel=use_kernel),
+                   device=resolve_device(device))
+    return LogActAgent(bus=bus,
+                       planner=ServePlanner(max_batch, pad_batch=pad_batch),
+                       env=env, handlers=SERVE_HANDLERS,
+                       voters=list(voters), agent_id=agent_id)
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: serve_step scheduler over the paged engine
+# ---------------------------------------------------------------------------
 
 @dataclass
 class ContinuousServeEnv:
@@ -75,7 +216,7 @@ def h_serve_step(args: Dict[str, Any], env: ContinuousServeEnv
             "n_inflight": eng.n_inflight, "pool": eng.pool.stats()}
 
 
-SERVE_HANDLERS = {"serve_step": h_serve_step}
+SERVE_HANDLERS["serve_step"] = h_serve_step
 
 
 class ContinuousServePlanner(Planner):

@@ -1,15 +1,20 @@
-"""Tests of the port that need the card: the CUDA paged-attention kernel
-against its plain version, and the engine's tokens with the kernel against
-the plain path, on the card. Marked ``cuda``; they skip where there is no
-card. Run them on a machine with one:
+"""Tests of the port that need the card: each CUDA kernel (paged
+attention, the SSD intra-chunk terms) against its plain version, and the
+tokens of the paths they carry (the paged engine, static mamba2 serving)
+with the kernel against the plain path, on the card. Marked ``cuda``; they
+skip where there is no card. Run them on a machine with one:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
 This file imports no JAX: the machine with the card need not have it.
 
-Tolerance for kernel vs plain: atol = rtol = 2e-5 on unit-normal inputs,
-the reference's own kernel-vs-oracle tolerance; both are fp32 and sum in
-another order (online softmax over pages vs one softmax over the gather).
+Tolerance for paged attention vs plain: atol = rtol = 2e-5 on
+unit-normal inputs, the reference's own kernel-vs-oracle tolerance; both
+are fp32 and sum in another order (online softmax over pages vs one
+softmax over the gather). For the SSD kernel: atol = rtol = 1e-4, the
+reference's tolerance for its SSD kernel against the oracle
+(``tests/test_kernels.py:104-109``); the kernel's cumsum is a parallel
+scan, the plain one another order.
 """
 import pytest
 
@@ -20,6 +25,10 @@ import numpy as np  # noqa: E402
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_plain)
+from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402,E501
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.serving import server  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +118,78 @@ def test_engine_tokens_kernel_vs_plain(cuda):
         assert paged_attention.launches == want
         outs.append(done)
     assert outs[0] == outs[1] and len(outs[0]) == 4
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk kernel
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _ssd_case(seed, b, nc, q, h, p, g, n, device, a=None, dt_shift=0.0):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = (rng.standard_normal((b, nc, q, h, p)) * 0.5).astype(f)
+    dt = np.logaddexp(rng.standard_normal((b, nc, q, h)) + dt_shift,
+                      0.0).astype(f)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(f) if a is None \
+        else np.full(h, a, f)
+    B = (rng.standard_normal((b, nc, q, g, n)) * 0.3).astype(f)
+    C = (rng.standard_normal((b, nc, q, g, n)) * 0.3).astype(f)
+    return [torch.from_numpy(t).to(device) for t in (x, dt, A, B, C)]
+
+
+@pytest.mark.parametrize("shape,kw", [
+    (dict(b=1, nc=3, q=16, h=4, p=8, g=4, n=16), {}),
+    (dict(b=2, nc=2, q=32, h=8, p=16, g=8, n=32), {}),
+    (dict(b=1, nc=1, q=64, h=2, p=64, g=2, n=64), {}),
+    (dict(b=2, nc=2, q=32, h=8, p=8, g=2, n=16), {}),          # G < H
+    (dict(b=1, nc=2, q=80, h=4, p=32, g=1, n=24), {}),         # ragged tile
+    (dict(b=1, nc=2, q=256, h=4, p=64, g=1, n=128),
+     dict(a=-1.0, dt_shift=0.5)),                              # overflow
+    (dict(b=1, nc=1, q=300, h=2, p=16, g=1, n=32),
+     dict(a=-1.0, dt_shift=0.5)),             # cumsum past 256 rows, carry
+], ids=["oracle-case", "b2", "q64", "g2-of-8", "q80", "overflow", "q300"])
+def test_ssd_kernel_matches_plain(cuda, shape, kw):
+    case = _ssd_case(0, device=cuda, **shape, **kw)
+    before = ssd_intra.launches
+    out = ssd_intra(*case)
+    torch.cuda.synchronize()
+    assert ssd_intra.launches == before + 1
+    for got, want in zip(out, ssd_intra_plain(*case)):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **SSD_TOL)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a, b, c = _ssd_case(1, 1, 1, 16, 4, 64, 2, 16, cuda)
+    with pytest.raises(TypeError):
+        ssd_intra(x.double(), dt, a, b, c)
+    with pytest.raises(ValueError):  # 3 groups do not divide 4 heads
+        ssd_intra(x, dt, a, torch.cat([b, b[..., :1, :]], 3),
+                  torch.cat([c, c[..., :1, :]], 3))
+    with pytest.raises(ValueError):  # not contiguous
+        ssd_intra(x.transpose(3, 4).contiguous().transpose(3, 4), dt, a, b,
+                  c)
+    with pytest.raises(ValueError):  # head_dim above the kernel's 64
+        ssd_intra(torch.cat([x, x], 4), dt, a, b, c)
+
+
+def test_static_serving_tokens_kernel_vs_plain(cuda):
+    cfg = smoke(get_config("mamba2_780m"))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(5)
+    args = {"prompts": [rng.integers(1, cfg.vocab, size=n).tolist()
+                        for n in (5, 40, 17)], "max_new_tokens": 6,
+            "pad_batch": 4}
+    outs = []
+    for use_kernel in (True, False):
+        env = server.ServeEnv(model=Model(cfg, use_kernel=use_kernel),
+                              params=params, device=cuda)
+        ssd_intra.launches = 0
+        outs.append(server.h_serve_batch(dict(args), env))
+        assert ssd_intra.launches == (cfg.n_layers if use_kernel else 0)
+    assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3

@@ -33,7 +33,11 @@ def _imported_modules(path: Path):
 def test_port_modules_exist():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
     assert {"repro_torch/serving/server.py", "repro_torch/core/agent.py",
-            "repro_torch/kernels/paged_attention.py"} <= names
+            "repro_torch/kernels/paged_attention.py",
+            "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
+            "repro_torch/configs/mamba2_780m.py"} <= names
+    assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
+        "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu"}
     assert (ROOT / "chip_smoke.py").exists()
 
 
