@@ -22,7 +22,20 @@ code is not 0 and no result line is printed:
    timed on the engine, and paged attention is timed at the main path's
    shape beside its byte/operation bound, its plain version and a PyTorch
    library call.
-5. slice 2 — the governed static-batching serving path at the full width
+5. slice 3 — the governed static-batching serving path at the full width
+   of ``qwen3_4b``, on slice 1's parameters: the 8 requests of slice 2 in
+   two ``serve_batch`` intents, each dense prefill running the
+   flash-attention kernel once a layer; launch counts zeroed just before
+   and read just after. A denylisted run must abort every intent with no
+   launch, a plain run (``use_kernel=False``) must give the same tokens,
+   and the (4, 675) prefill's last-position logits and every layer's K/V
+   are held against the plain path's, beside two broken controls on the
+   plain path (attention not causal; the last layer's attention output
+   zeroed) that must break those limits. Then prefill, decode, memory,
+   profiles, and ``flash_mha`` at the slice's own inputs beside its bound,
+   its plain version and ``scaled_dot_product_attention``. Slice 1's
+   parameters are freed after it.
+6. slice 2 — the governed static-batching serving path at the full width
    of ``mamba2_780m`` (48 layers, random fp32 weights): 8 requests in two
    ``serve_batch`` intents, each prefill running the SSD intra-chunk
    kernel once a layer; launch counts zeroed just before and read just
@@ -32,7 +45,7 @@ code is not 0 and no result line is printed:
    path's. Then prefill, decode, memory, a profile, and ``ssd_intra`` at
    the slice's own inputs beside its bound, its plain version and a
    yardstick of library calls.
-6. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+7. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and last the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -55,15 +68,18 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
 # main-path geometry (qwen3_4b at full width)
 MAX_BATCH, PAGE_SIZE, NUM_PAGES, MAX_PAGES_PER_SEQ = 4, 16, 257, 64
-KERNELS = ("paged_attention", "ssd_scan")  # the sources under csrc/
-# slice 2 (mamba2_780m, static discipline): requests and their tokens
-SSM_REQUESTS, SSM_NEW_TOKENS, SSM_MAX_BATCH = 8, 16, 4
-# the full-width prefill's logits, kernel vs plain: 48 layers compound the
-# intra-chunk terms' ~1e-6 relative differences
+KERNELS = ("paged_attention", "ssd_scan", "flash_attention")  # csrc/
+# flash attention vs its plain version: the reference's fp32 tolerance
+# for its flash kernel against mha_ref (atol = rtol)
+FLASH_TOL = 2e-5
+# slices 2 and 3 (static discipline): requests, their tokens, batch size
+STATIC_REQUESTS, STATIC_NEW_TOKENS, STATIC_MAX_BATCH = 8, 16, 4
+# the full-width prefill's logits, kernel vs plain: 36-48 layers compound
+# the kernels' ~1e-6 relative differences
 LOGIT_RTOL = 1e-3
-# its final SSM states (every layer): atol STATE_TOL x max|state| plus
-# rtol STATE_TOL
-STATE_TOL = 1e-4
+# what the prefill leaves in the cache (every layer's final SSM state, or
+# every layer's K and V): atol CACHE_TOL x max|plain| plus rtol CACHE_TOL
+CACHE_TOL = 1e-4
 
 
 def _smi() -> str:
@@ -357,21 +373,28 @@ def time_ssd_intra(case, flush):
                 bytes=n_bytes)
 
 
+def _wrappers():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_mha
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ssd_scan import ssd_intra
+    return {"paged_attention": paged_attention, "ssd_intra": ssd_intra,
+            "flash_attention": flash_mha}
+
+
 def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
-    """Phase 5: one governed run of the static serving agent on the card,
-    a RuleVoter on STANDARD_RULES, ``policy`` on its scope. The SSD
+    """Phases 5 and 6: one governed run of the static serving agent on the
+    card, a RuleVoter on STANDARD_RULES, ``policy`` on its scope. Every
     kernel's count is zeroed just before the run and read just after."""
     import torch
     from repro_torch.core.acl import BusClient
     from repro_torch.core.entries import PayloadType
     from repro_torch.core.voter import STANDARD_RULES, RuleVoter
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.ssd_scan import ssd_intra
     from repro_torch.serving.server import build_serving_agent
-    agent = build_serving_agent(cfg, max_batch=SSM_MAX_BATCH,
+    agent = build_serving_agent(cfg, max_batch=STATIC_MAX_BATCH,
                                 use_kernel=use_kernel, device="cuda")
     agent.executor.env.params = params
-    agent.executor.env.max_new_tokens = SSM_NEW_TOKENS
+    agent.executor.env.max_new_tokens = STATIC_NEW_TOKENS
     agent.add_voter(RuleVoter(BusClient(agent.bus, "v-rule", "voter"),
                               rules=STANDARD_RULES), from_tail=False)
     agent.set_policy("decider", {"mode": "first_voter"})
@@ -380,12 +403,14 @@ def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
     for r in requests:
         agent.send_mail(f"request {r['req_id']}", **r)
     torch.cuda.synchronize()
-    ssd_intra.launches = paged_attention.launches = 0
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     agent.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, paged_launches = ssd_intra.launches, paged_attention.launches
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     log = agent.external_client("smoke", "admin").read(0)
     by = {t: [e.body for e in log if e.type == t] for t in PayloadType}
     intents = [b for b in by[PayloadType.INTENT]
@@ -399,7 +424,7 @@ def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
                               r["value"]["generated"]))
             batches.append((r["value"]["req_ids"],
                             r["value"]["prefill_len"]))
-    return dict(wall=wall, launches=launches, paged_launches=paged_launches,
+    return dict(wall=wall, launches=launches,
                 intents=intents, results=results, tokens=tokens,
                 batches=batches,
                 commits={b["intent_id"] for b in by[PayloadType.COMMIT]},
@@ -433,8 +458,9 @@ def _top2_margin(model, params, toks, row, pos, tokens_so_far):
     """Top-1 minus top-2 logit of ``row`` at decoded position ``pos`` on
     the plain path, feeding the plain path's own tokens."""
     import torch
-    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(
-        toks).cuda()})
+    logits, cache = model.prefill(
+        params, {"tokens": torch.from_numpy(toks).cuda()},
+        extra_cache=STATIC_NEW_TOKENS)
     for t in range(pos):
         tok = torch.tensor([[r[t]] for r in tokens_so_far], device="cuda")
         logits, cache = model.decode_step(params, cache, tok,
@@ -443,167 +469,35 @@ def _top2_margin(model, params, toks, row, pos, tokens_so_far):
     return (top[0] - top[1]).item()
 
 
-def slice_mamba2(smi):
-    """Phase 5: governed static serving of full-width mamba2_780m.
-    Returns the SSD kernel's launch count of the governed kernel run and
-    its timing at the slice's own inputs."""
+def static_requests(cfg):
+    """The static slices' requests: STATIC_REQUESTS prompts of 64-700
+    tokens, from a numpy seed (the lengths come out the same for every
+    vocab: 597, 377, 539, 345, 107, 675, 484, 444)."""
     import numpy as np
-    import torch
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
-    from repro_torch.models import ssm as ssm_lib
-    from repro_torch.models.model import Model
-    from repro_torch.models.params import init_params
-
-    cfg = get_config("mamba2_780m")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        SEED), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    s = cfg.ssm
-    print(f"[slice 2] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, inner {s.expand * cfg.d_model}, "
-          f"{s.expand * cfg.d_model // s.head_dim} heads x {s.head_dim}, "
-          f"d_state {s.d_state}, groups {s.n_groups}, chunk {s.chunk}, "
-          f"vocab {cfg.vocab}; {n_params} fp32 params ({cfg.n_params()} "
-          f"by the config's count) from torch.Generator seed {SEED} in "
-          f"{time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(SEED + 2)
-    requests = [{"req_id": f"req-{i}",
-                 "prompt_tokens": rng.integers(
-                     0, cfg.vocab, size=int(rng.integers(64, 701))).tolist()}
-                for i in range(SSM_REQUESTS)]
-    print(f"  requests (prompt len): " + ", ".join(
-        f"{r['req_id']}({len(r['prompt_tokens'])})" for r in requests)
-        + f"; {SSM_NEW_TOKENS} new tokens each")
+    return [{"req_id": f"req-{i}",
+             "prompt_tokens": rng.integers(
+                 0, cfg.vocab, size=int(rng.integers(64, 701))).tolist()}
+            for i in range(STATIC_REQUESTS)]
 
-    run = serve_static(cfg, params, requests, use_kernel=True)
-    batches = _batch_tokens(run, requests)
-    print("  batches (req_ids, padded len): " + "; ".join(
-        f"{','.join(rids)} ({t.shape[1]})" for rids, t in batches))
-    ids = [b["intent_id"] for b in run["intents"]]
-    want_launches = len(run["results"]) * cfg.n_layers
-    print(f"  kernel run: serve_batch intents {len(ids)}, committed "
-          f"{len(run['commits'] & set(ids))}, ok results "
-          f"{sum(b['ok'] for b in run['results'].values())}, served "
-          f"{len(run['tokens'])}; ssd_intra launches {run['launches']} "
-          f"(want {len(run['results'])} executed x {cfg.n_layers} = "
-          f"{want_launches}); wall {run['wall']:.3f} s")
-    if len(ids) != 2 or not set(ids) <= run["commits"] or run["aborts"] \
-            or set(run["results"]) != set(ids) \
-            or not all(b["ok"] for b in run["results"].values()):
-        raise AssertionError("want two serve_batch intents, both committed "
-                             "with an ok Result")
-    if sorted(run["tokens"]) != sorted(r["req_id"] for r in requests):
-        raise AssertionError("not every request was served")
-    if run["launches"] != want_launches or run["paged_launches"]:
-        raise AssertionError("the prefills did not each launch the SSD "
-                             "kernel once a layer")
-    for rid, toks in run["tokens"].items():
-        if len(toks) != SSM_NEW_TOKENS or not all(
-                0 <= t < cfg.vocab for t in toks):
-            raise AssertionError(f"{rid}: bad tokens {toks}")
-    launches = run["launches"]
-    n_tokens = len(requests) * SSM_NEW_TOKENS
-    print(f"  governed kernel run: {n_tokens} tokens in {run['wall']:.3f} s "
-          f"= {n_tokens / run['wall']:.2f} tokens/s end to end "
-          f"(prefill + decode + governance) on {smi}")
 
-    deny = serve_static(cfg, params, requests, use_kernel=True,
-                        policy={"kind_denylist": ["serve_batch"]})
-    dids = {b["intent_id"] for b in deny["intents"]}
-    print(f"  denylisted run: serve_batch intents {len(dids)}, aborted "
-          f"{len(deny['aborts'] & dids)}, committed "
-          f"{len(deny['commits'] & dids)}, results {len(deny['results'])}, "
-          f"ssd_intra launches {deny['launches']}")
-    if not dids or deny["aborts"] != dids or deny["commits"] \
-            or deny["results"] or deny["launches"]:
-        raise AssertionError("the denylisted intents were not all stopped "
-                             "before execution")
+def _no_launches():
+    return {name: 0 for name in _wrappers()}
 
-    ref = serve_static(cfg, params, requests, use_kernel=False)
-    if ref["launches"] != 0:
-        raise AssertionError("the plain run launched the kernel")
-    for rids, toks in batches:
-        for row, rid in enumerate(rids):
-            got, want = run["tokens"][rid], ref["tokens"][rid]
-            if got != want:
-                pos = next(i for i, (u, v) in enumerate(zip(got, want))
-                           if u != v)
-                margin = _top2_margin(
-                    Model(cfg, use_kernel=False), params, toks, row, pos,
-                    [ref["tokens"][r] for r in rids])
-                raise AssertionError(
-                    f"kernel vs plain tokens differ: {rid} first at decoded "
-                    f"position {pos} ({got[pos]} vs {want[pos]}); the plain "
-                    f"path's top-2 logit margin there is {margin}")
-    print(f"  plain run on the card: identical tokens for all "
-          f"{len(ref['tokens'])} requests; wall {ref['wall']:.3f} s; e.g. "
-          + "; ".join(f"{r['req_id']} (last prompt token "
-                      f"{r['prompt_tokens'][-1]}): {run['tokens'][r['req_id']]}"
-                      for r in requests[:2]))
 
-    # the full-width prefill, kernel vs plain: the logits and every
-    # layer's final SSM state. Two broken controls on the plain path (the
-    # intra-chunk y zeroed; the chunk states zeroed) show that the limits
-    # catch a wrong SSD path.
-    kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
-    rids, toks = max(batches, key=lambda bt: bt[1].shape[1])
-    tok_t = torch.from_numpy(toks).cuda()
-    kl, ks = _final_states(kmodel, params, tok_t)
-    pl, ps = _final_states(pmodel, params, tok_t)
-    lmax, smax = pl.abs().max().item(), ps.abs().max().item()
-
-    def gaps(logits, states):
-        """Max abs diff from the plain path of the logits and the states,
-        and whether each is within its limit."""
-        lerr = (logits - pl).abs().max().item()
-        serr = (states - ps).abs()
-        return (lerr, serr.max().item(), lerr <= LOGIT_RTOL * lmax,
-                bool(torch.all(serr <= STATE_TOL * (smax + ps.abs()))))
-
-    def broken(out):
-        def intra(*args):
-            y, states, decay = ssd_intra_plain(*args)
-            return ((torch.zeros_like(y), states, decay) if out == "y"
-                    else (y, torch.zeros_like(states), decay))
-        return intra
-    kgap = gaps(kl, ks)
-    controls = {}
-    for out in ("y", "states"):
-        ssm_lib.ssd_intra_plain = broken(out)
-        try:
-            controls[out] = gaps(*_final_states(pmodel, params, tok_t))
-        finally:
-            ssm_lib.ssd_intra_plain = ssd_intra_plain
-    print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|state|"
-          f" {smax:.4e}; limits: logits {LOGIT_RTOL} x max|logit|, states "
-          f"{STATE_TOL} x max|state| + rtol {STATE_TOL}")
-    for label, (lerr, serr, lok, sok) in [("kernel", kgap)] + [
-            (f"control, plain with {o} zeroed", g)
-            for o, g in controls.items()]:
-        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
-              f"({'within' if lok else 'over'} the limit), final states "
-              f"{serr:.4e} ({'within' if sok else 'over'} the limit)")
-    if not (torch.isfinite(kl).all() and torch.isfinite(ks).all()
-            and kgap[2] and kgap[3]):
-        raise AssertionError("full-width prefill: kernel vs plain logits or "
-                             "final states over the limit, or not finite")
-    if any(g[3] for g in controls.values()):
-        raise AssertionError("a broken SSD path passed the final states' "
-                             "limit: the check has no power")
-    del kl, ks, pl, ps, run, deny, ref
-
-    # timings on the model itself (kernel path) at the slice's shapes
-    model = kmodel
+def time_static(model, params, batches, smi):
+    """A static slice's readings on the model itself (kernel path), at the
+    slice's shapes: each batch's prefill, the decode step at the last
+    batch's rows, peak memory, and profiles of one prefill and of three
+    decode steps."""
+    import torch
     prefill_ms = []
     for _, bt in batches:
         bt_t = torch.from_numpy(bt).cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": bt_t})
+        logits, cache = model.prefill(params, {"tokens": bt_t},
+                                      extra_cache=STATIC_NEW_TOKENS)
         torch.cuda.synchronize()
         prefill_ms.append((bt.shape, (time.perf_counter() - t0) * 1e3))
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -626,7 +520,8 @@ def slice_mamba2(smi):
     holder = {"cache": cache}
 
     def one_prefill():
-        holder["cache"] = model.prefill(params, {"tokens": bt_t})[1]
+        holder["cache"] = model.prefill(
+            params, {"tokens": bt_t}, extra_cache=STATIC_NEW_TOKENS)[1]
 
     def one_decode():
         holder["cache"] = model.decode_step(params, holder["cache"], tok,
@@ -634,6 +529,169 @@ def slice_mamba2(smi):
     _profile(f"one prefill {tuple(bt.shape)}", [one_prefill], 1)
     _profile(f"three decode steps at {rows} rows", [one_decode] * 3, 3)
     del holder, cache
+
+
+def governed_static(cfg, params, kernel: str, smi):
+    """The governed static runs of a slice on the card: the kernel run (two
+    committed ``serve_batch`` intents, every request served, ``kernel``
+    launched once a layer in each prefill and no other kernel), a run
+    whose policy denylists ``serve_batch`` (every intent aborted, no
+    launch) and a plain run (no launch) whose tokens must equal the kernel
+    run's. Returns the kernel run and its batches."""
+    from repro_torch.models.model import Model
+    requests = static_requests(cfg)
+    print(f"  requests (prompt len): " + ", ".join(
+        f"{r['req_id']}({len(r['prompt_tokens'])})" for r in requests)
+        + f"; {STATIC_NEW_TOKENS} new tokens each")
+    run = serve_static(cfg, params, requests, use_kernel=True)
+    batches = _batch_tokens(run, requests)
+    print("  batches (req_ids, padded len): " + "; ".join(
+        f"{','.join(rids)} ({t.shape[1]})" for rids, t in batches))
+    ids = [b["intent_id"] for b in run["intents"]]
+    want_launches = len(run["results"]) * cfg.n_layers
+    print(f"  kernel run: serve_batch intents {len(ids)}, committed "
+          f"{len(run['commits'] & set(ids))}, ok results "
+          f"{sum(b['ok'] for b in run['results'].values())}, served "
+          f"{len(run['tokens'])}; {kernel} launches "
+          f"{run['launches'][kernel]} (want {len(run['results'])} "
+          f"executed x {cfg.n_layers} = {want_launches}); all launches "
+          f"{run['launches']}; wall {run['wall']:.3f} s")
+    if len(ids) != 2 or not set(ids) <= run["commits"] or run["aborts"] \
+            or set(run["results"]) != set(ids) \
+            or not all(b["ok"] for b in run["results"].values()):
+        raise AssertionError("want two serve_batch intents, both committed "
+                             "with an ok Result")
+    if sorted(run["tokens"]) != sorted(r["req_id"] for r in requests):
+        raise AssertionError("not every request was served")
+    if run["launches"] != dict(_no_launches(), **{kernel: want_launches}):
+        raise AssertionError(f"the prefills did not each launch {kernel} "
+                             f"once a layer, and no other kernel")
+    for rid, toks in run["tokens"].items():
+        if len(toks) != STATIC_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{rid}: bad tokens {toks}")
+    n_tokens = len(requests) * STATIC_NEW_TOKENS
+    print(f"  governed kernel run: {n_tokens} tokens in {run['wall']:.3f} s "
+          f"= {n_tokens / run['wall']:.2f} tokens/s end to end "
+          f"(prefill + decode + governance) on {smi}")
+
+    deny = serve_static(cfg, params, requests, use_kernel=True,
+                        policy={"kind_denylist": ["serve_batch"]})
+    dids = {b["intent_id"] for b in deny["intents"]}
+    print(f"  denylisted run: serve_batch intents {len(dids)}, aborted "
+          f"{len(deny['aborts'] & dids)}, committed "
+          f"{len(deny['commits'] & dids)}, results {len(deny['results'])}, "
+          f"launches {deny['launches']}")
+    if not dids or deny["aborts"] != dids or deny["commits"] \
+            or deny["results"] or deny["launches"] != _no_launches():
+        raise AssertionError("the denylisted intents were not all stopped "
+                             "before execution")
+
+    ref = serve_static(cfg, params, requests, use_kernel=False)
+    if ref["launches"] != _no_launches():
+        raise AssertionError("the plain run launched a kernel")
+    for rids, toks in batches:
+        for row, rid in enumerate(rids):
+            got, want = run["tokens"][rid], ref["tokens"][rid]
+            if got != want:
+                pos = next(i for i, (u, v) in enumerate(zip(got, want))
+                           if u != v)
+                margin = _top2_margin(
+                    Model(cfg, use_kernel=False), params, toks, row, pos,
+                    [ref["tokens"][r] for r in rids])
+                raise AssertionError(
+                    f"kernel vs plain tokens differ: {rid} first at decoded "
+                    f"position {pos} ({got[pos]} vs {want[pos]}); the plain "
+                    f"path's top-2 logit margin there is {margin}")
+    print(f"  plain run on the card: identical tokens for all "
+          f"{len(ref['tokens'])} requests; wall {ref['wall']:.3f} s; e.g. "
+          + "; ".join(f"{r['req_id']} (last prompt token "
+                      f"{r['prompt_tokens'][-1]}): {run['tokens'][r['req_id']]}"
+                      for r in requests[:2]))
+    return run, batches
+
+
+def slice_mamba2(smi):
+    """Phase 6: governed static serving of full-width mamba2_780m.
+    Returns the SSD kernel's launch count of the governed kernel run and
+    its timing at the slice's own inputs."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+
+    cfg = get_config("mamba2_780m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    s = cfg.ssm
+    print(f"[slice 2] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, inner {s.expand * cfg.d_model}, "
+          f"{s.expand * cfg.d_model // s.head_dim} heads x {s.head_dim}, "
+          f"d_state {s.d_state}, groups {s.n_groups}, chunk {s.chunk}, "
+          f"vocab {cfg.vocab}; {n_params} fp32 params ({cfg.n_params()} "
+          f"by the config's count) from torch.Generator seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    run, batches = governed_static(cfg, params, "ssd_intra", smi)
+    launches = run["launches"]["ssd_intra"]
+
+    # the full-width prefill, kernel vs plain: the logits and every
+    # layer's final SSM state. Two broken controls on the plain path (the
+    # intra-chunk y zeroed; the chunk states zeroed) show that the limits
+    # catch a wrong SSD path.
+    kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
+    rids, toks = max(batches, key=lambda bt: bt[1].shape[1])
+    tok_t = torch.from_numpy(toks).cuda()
+    kl, ks = _final_states(kmodel, params, tok_t)
+    pl, ps = _final_states(pmodel, params, tok_t)
+    lmax, smax = pl.abs().max().item(), ps.abs().max().item()
+
+    def gaps(logits, states):
+        """Max abs diff from the plain path of the logits and the states,
+        and whether each is within its limit."""
+        lerr = (logits - pl).abs().max().item()
+        serr = (states - ps).abs()
+        return (lerr, serr.max().item(), lerr <= LOGIT_RTOL * lmax,
+                bool(torch.all(serr <= CACHE_TOL * (smax + ps.abs()))))
+
+    def broken(out):
+        def intra(*args):
+            y, states, decay = ssd_intra_plain(*args)
+            return ((torch.zeros_like(y), states, decay) if out == "y"
+                    else (y, torch.zeros_like(states), decay))
+        return intra
+    kgap = gaps(kl, ks)
+    controls = {}
+    for out in ("y", "states"):
+        ssm_lib.ssd_intra_plain = broken(out)
+        try:
+            controls[out] = gaps(*_final_states(pmodel, params, tok_t))
+        finally:
+            ssm_lib.ssd_intra_plain = ssd_intra_plain
+    print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|state|"
+          f" {smax:.4e}; limits: logits {LOGIT_RTOL} x max|logit|, states "
+          f"{CACHE_TOL} x max|state| + rtol {CACHE_TOL}")
+    for label, (lerr, serr, lok, sok) in [("kernel", kgap)] + [
+            (f"control, plain with {o} zeroed", g)
+            for o, g in controls.items()]:
+        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
+              f"({'within' if lok else 'over'} the limit), final states "
+              f"{serr:.4e} ({'within' if sok else 'over'} the limit)")
+    if not (torch.isfinite(kl).all() and torch.isfinite(ks).all()
+            and kgap[2] and kgap[3]):
+        raise AssertionError("full-width prefill: kernel vs plain logits or "
+                             "final states over the limit, or not finite")
+    if any(g[3] for g in controls.values()):
+        raise AssertionError("a broken SSD path passed the final states' "
+                             "limit: the check has no power")
+    del kl, ks, pl, ps, run
+
+    time_static(kmodel, params, batches, smi)
 
     # the kernel at the slice's own inputs: layer 0's SSD in the prefill
     # of the longest batch (captured from the path, launched outside the
@@ -646,7 +704,7 @@ def slice_mamba2(smi):
         return ssd_intra(*args)
     ssm_lib.ssd_intra = capture
     try:
-        model.prefill(params, {"tokens": tok_t})
+        kmodel.prefill(params, {"tokens": tok_t})
     finally:
         ssm_lib.ssd_intra = ssd_intra
     case = captured[0]
@@ -665,9 +723,223 @@ def slice_mamba2(smi):
     return {"launches": launches, "timing": t}
 
 
+def _mha_case(rng, b, sq, sk, h, kv, dh):
+    """Unit-normal q (b,sq,h,dh), k/v (b,sk,kv,dh) on the card."""
+    import numpy as np
+    import torch
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).cuda()
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
+
+
+def check_flash_attention():
+    """Phase 3: the flash kernel against its plain version on the card, at
+    the reference's test shapes and variants, the non-causal unaligned
+    case (where the Pallas kernel lets pad keys in), Sq > Sk without and
+    with a window (rows that see no key give 0 in both), and the full
+    qwen3_4b prefill's shape. Tolerance atol = rtol = FLASH_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_mha,
+                                                     flash_mha_plain)
+    rng = np.random.default_rng(SEED)
+    cases = [  # (label, (B, Sq, Sk, H, Kv, Dh), options)
+        ("test mha", (1, 128, 128, 2, 2, 64), {}),
+        ("test gqa", (2, 256, 256, 4, 2, 128), {}),
+        ("test mqa Sk>Sq", (1, 128, 384, 4, 1, 128), {}),
+        ("test unaligned", (1, 200, 200, 2, 2, 80), {}),
+        ("test non-causal", (2, 256, 256, 4, 2, 128), dict(causal=False)),
+        ("test window", (2, 256, 256, 4, 2, 128), dict(window=64)),
+        ("test softcap", (2, 256, 256, 4, 2, 128), dict(softcap=50.0)),
+        ("test window+softcap", (2, 256, 256, 4, 2, 128),
+         dict(window=128, softcap=30.0)),
+        ("non-causal unaligned (Pallas pad keys)", (1, 200, 200, 2, 2, 64),
+         dict(causal=False)),
+        ("Sq>Sk non-causal", (1, 300, 130, 4, 2, 64), dict(causal=False)),
+        ("Sq>Sk non-causal window (rows 179.. see no key: 0)",
+         (1, 300, 130, 4, 2, 64), dict(causal=False, window=50)),
+        ("full width", (4, 675, 675, 32, 8, 128), {}),
+    ]
+    worst = 0.0
+    for label, shape, kw in cases:
+        q, k, v = _mha_case(rng, *shape)
+        out = flash_mha(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = flash_mha_plain(q, k, v, **kw)
+        err = (out - ref).abs()
+        if not (torch.isfinite(out).all()
+                and torch.all(err <= FLASH_TOL + FLASH_TOL * ref.abs())):
+            raise AssertionError(f"flash_mha {label}: max abs err "
+                                 f"{err.max().item()} over atol = rtol = "
+                                 f"{FLASH_TOL}, or not finite")
+        print(f"  flash_mha {label}: (B,Sq,Sk,H,Kv,Dh) {shape} {kw or ''}"
+              f" max abs err {err.max().item():.3e} (atol = rtol "
+              f"{FLASH_TOL})")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def time_flash_attention(case, flush):
+    """Kernel, plain version, bound and library call at one causal input
+    set without a window (q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as the dense
+    prefill calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_mha,
+                                                     flash_mha_plain)
+    q, k, v = case
+    bsz, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    ms = _time_ms(lambda: flash_mha(q, k, v), flush)
+    plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v), flush)
+    # the least work: 2 FLOPs per MAC of q.k and of p.v over the visible
+    # (q, k) pairs (k <= q) of every query head; q and K/V (once per kv
+    # head) read once, the output written once
+    visible = sum(min(sk, i + 1) for i in range(sq))
+    n_ops = 4 * dh * visible * bsz * h
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_FP32_FLOP_S * 1e3
+    # yardstick only: one library call, on K/V repeated to H heads and all
+    # three laid out (B, heads, S, Dh) beforehand
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), flush)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, flop=n_ops, bytes=n_bytes)
+
+
+def _prefill_kv(model, params, tokens):
+    """Logits (real vocab) and every layer's K and V of one prefill."""
+    logits, cache = model.prefill(params, {"tokens": tokens})
+    return (logits[..., :model.cfg.vocab], cache["attn"]["k"],
+            cache["attn"]["v"])
+
+
+def slice_qwen3_static(smi, cfg, params):
+    """Phase 5: governed static serving of full-width qwen3_4b, on slice
+    1's parameters. Returns the flash kernel's launch count of the
+    governed kernel run and its timing at the slice's own inputs."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_mha
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import INF_WINDOW, Model
+
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[slice 3] {cfg.arch_id} static: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; slice 1's "
+          f"fp32 params (torch.Generator seed {SEED}); max_batch "
+          f"{STATIC_MAX_BATCH}")
+    run, batches = governed_static(cfg, params, "flash_attention", smi)
+    launches = run["launches"]["flash_attention"]
+
+    # the (4, 675) prefill, kernel vs plain: the last position's logits
+    # and every layer's K and V. Layer i's attention reaches the K/V of
+    # layers i+1.., the last layer's only the logits, so the two checks
+    # together cover every launch. Two broken controls on the plain path
+    # (attention not causal; the last layer's attention output zeroed)
+    # show that the limits catch a wrong attention path.
+    kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
+    _, toks = max(batches, key=lambda bt: bt[1].shape[1])
+    tok_t = torch.from_numpy(toks).cuda()
+    kl, kk, kv = _prefill_kv(kmodel, params, tok_t)
+    pl, pk, pv = _prefill_kv(pmodel, params, tok_t)
+    lmax, kmax, vmax = (t.abs().max().item() for t in (pl, pk, pv))
+
+    def gaps(logits, k, v):
+        """Max abs diff from the plain path of the logits, K and V, and
+        whether each is within its limit."""
+        lerr = (logits - pl).abs().max().item()
+        kerr, verr = (k - pk).abs(), (v - pv).abs()
+        return (lerr, kerr.max().item(), verr.max().item(),
+                lerr <= LOGIT_RTOL * lmax,
+                bool(torch.all(kerr <= CACHE_TOL * (kmax + pk.abs())))
+                and bool(torch.all(verr <= CACHE_TOL * (vmax + pv.abs()))))
+
+    attention = model_lib.attention
+
+    def not_causal(q, k, v, **kw):
+        return attention(q, k, v, **dict(kw, causal=False))
+
+    calls = []
+
+    def last_layer_zeroed(q, k, v, **kw):
+        calls.append(1)
+        o = attention(q, k, v, **kw)
+        return torch.zeros_like(o) if len(calls) == cfg.n_layers else o
+    kgap = gaps(kl, kk, kv)
+    del kl, kk, kv
+    controls = {}
+    for label, fn in (("attention not causal", not_causal),
+                      ("the last layer's attention output zeroed",
+                       last_layer_zeroed)):
+        model_lib.attention = fn
+        try:
+            controls[label] = gaps(*_prefill_kv(pmodel, params, tok_t))
+        finally:
+            model_lib.attention = attention
+    print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|k| "
+          f"{kmax:.4e}, max|v| {vmax:.4e}; limits: logits {LOGIT_RTOL} x "
+          f"max|logit|, K and V {CACHE_TOL} x max + rtol {CACHE_TOL}")
+    for label, (lerr, kerr, verr, lok, kvok) in [("kernel", kgap)] + [
+            (f"control, plain with {c}", g) for c, g in controls.items()]:
+        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
+              f"({'within' if lok else 'over'} the limit), every layer's K "
+              f"{kerr:.4e} V {verr:.4e} ({'within' if kvok else 'over'} "
+              f"the limit)")
+    if not (torch.isfinite(pl).all() and kgap[3] and kgap[4]):
+        raise AssertionError("full-width prefill: kernel vs plain logits or "
+                             "K/V over the limit")
+    nc, lz = controls.values()
+    if nc[4] or lz[3]:
+        raise AssertionError("a broken attention path passed the limits: "
+                             "not causal within the K/V limit, or the last "
+                             "layer zeroed within the logits limit")
+    del pl, pk, pv, run
+
+    time_static(kmodel, params, batches, smi)
+
+    # the kernel at the slice's own inputs: layer 0's q/k/v in the prefill
+    # of the longest batch (captured from the path, launched outside the
+    # counted run)
+    captured = []
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append(([t.clone() for t in (q, k, v)], kw))
+        return flash_mha(q, k, v, **kw)
+    model_lib.flash_mha = capture
+    try:
+        kmodel.prefill(params, {"tokens": tok_t})
+    finally:
+        model_lib.flash_mha = flash_mha
+    case, kw = captured[0]
+    del captured
+    if not (kw["causal"] and kw["window"] == INF_WINDOW
+            and kw["softcap"] is None and kw["scale"] is None):
+        raise AssertionError(f"the prefill called flash_mha with {kw}, "
+                             f"not causal without window, softcap or scale")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    t = time_flash_attention(case, flush)
+    print(f"  flash_mha at the slice's shape q {tuple(case[0].shape)} k/v "
+          f"{tuple(case[1].shape)} causal (layer 0 of the "
+          f"{tuple(toks.shape)} prefill): kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['flop']} FLOP, {t['bytes']} B), sdpa on "
+          f"K/V repeated to {cfg.n_heads} heads {t['library_ms']:.4f} ms | "
+          f"kernel at {t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
+    for k in ("flop", "bytes"):
+        t.pop(k)
+    return {"launches": launches, "timing": t}
+
+
 def build_kernels():
     """Phase 2: one nvcc per source, all started together; then load."""
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.flash_attention import _kernel_fn as flash_fn
     from repro_torch.kernels.paged_attention import _kernel_fn as paged_fn
     from repro_torch.kernels.ssd_scan import _kernel_fn as ssd_fn
     t0 = time.perf_counter()
@@ -675,6 +947,7 @@ def build_kernels():
         logs = dict(zip(KERNELS, pool.map(cuda_lib.build, KERNELS)))
     paged_fn()
     ssd_fn()
+    flash_fn()
     print(f"[build] {', '.join(f'{k}.cu' for k in KERNELS)} built in "
           f"parallel and loaded in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
@@ -706,15 +979,21 @@ def main() -> None:
     paged_err = check_paged_attention()
     print("[kernels] ssd_intra vs ssd_intra_plain on the card")
     ssd_err = check_ssd_intra()
+    print("[kernels] flash_mha vs flash_mha_plain on the card")
+    flash_err = check_flash_attention()
 
     # 4. slice 1: governed continuous serving at full qwen3_4b width
     paged = slice_qwen3(smi)
+
+    # 5. slice 3: governed static serving at full qwen3_4b width, on slice
+    # 1's parameters, which are freed after it
+    flash = slice_qwen3_static(smi, paged.pop("cfg"), paged.pop("params"))
     torch.cuda.empty_cache()
 
-    # 5. slice 2: governed static serving at full mamba2_780m width
+    # 6. slice 2: governed static serving at full mamba2_780m width
     ssd = slice_mamba2(smi)
 
-    # 6. result lines
+    # 7. result lines
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:45",
@@ -724,7 +1003,12 @@ def main() -> None:
                 "source": "src/repro_torch/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:27",
                 "launches": ssd["launches"], "max_abs_err": ssd_err,
-                **ssd["timing"]}]
+                **ssd["timing"]},
+               {"name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/csrc/flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:26",
+                "launches": flash["launches"], "max_abs_err": flash_err,
+                **flash["timing"]}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -734,11 +1018,13 @@ def main() -> None:
 
 def slice_qwen3(smi):
     """Phase 4: governed continuous serving of full-width qwen3_4b.
-    Returns the paged-attention launch count of the governed kernel run
-    and the kernel's timing at the main path's shape."""
+    Returns the paged-attention launch count of the governed kernel run,
+    the kernel's timing at the main path's shape, and the config and
+    parameters (for slice 3)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_mha
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_intra
     from repro_torch.models.params import init_params
@@ -763,7 +1049,7 @@ def slice_qwen3(smi):
         f"{', blocked' if r['tenant'] == 'blocked' else ''})"
         for r in requests))
 
-    ssd_intra.launches = 0
+    ssd_intra.launches = flash_mha.launches = 0
     run = serve(cfg, params, requests, use_kernel=True)
     pl, eng = run["planner"], run["engine"]
     want_launches = eng.n_steps * cfg.n_layers
@@ -782,8 +1068,10 @@ def slice_qwen3(smi):
     if run["launches"] != want_launches or want_launches == 0:
         raise AssertionError("the decode steps did not all go through the "
                              "kernel")
-    if ssd_intra.launches:
-        raise AssertionError("the dense path launched the SSD kernel")
+    if ssd_intra.launches or flash_mha.launches:
+        raise AssertionError("the continuous path launched the SSD or the "
+                             "flash kernel (its prefill runs the plain "
+                             "attention, as the reference's does)")
     for rid, toks in pl.outputs.items():
         if len(toks) != served[rid]["max_new_tokens"] or not all(
                 0 <= t < cfg.vocab for t in toks):
@@ -863,7 +1151,7 @@ def slice_qwen3(smi):
           f"{tf['bound_ms']:.4f} ms ({tf['bound_by']}), sdpa on "
           f"pre-gathered K/V {tf['library_ms']:.4f} ms | on {smi}")
     t.pop("ctx")
-    return {"launches": launches, "timing": t}
+    return {"launches": launches, "timing": t, "cfg": cfg, "params": params}
 
 
 def _profile(label, calls, n_rep):

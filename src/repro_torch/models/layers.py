@@ -1,6 +1,8 @@
 """Dense transformer building blocks, the port of ``models/layers.py``'s
 dense subset: RMSNorm, RoPE, GQA attention (dense reference and chunked
-online softmax), the qk-normed attention projections and the gated MLP.
+online softmax), the qk-normed attention projections, the self-attention
+block, the gated MLP and the decode-time KV cache (``cache_update``,
+``decode_attention_block``; the int8 ``kv_quant`` cache is not ported).
 
 Plain functions on tensors; params are the nested dicts of
 ``models.params`` in the reference's einsum layouts. The reference's
@@ -179,3 +181,49 @@ def mlp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg
     else:
         h = act(torch.einsum("bsd,df->bsf", x, p["w_up"]))
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# -- decode-time KV cache -----------------------------------------------------
+
+def cache_update(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
+                 v_new: torch.Tensor, cur: int, window: Optional[int]
+                 ) -> Dict[str, torch.Tensor]:
+    """Write one token's k/v (B, 1, Kv, Dh) at position ``cur`` into a
+    cache {k/v (B, S_cache, Kv, Dh), pos (S_cache,) with -1 = empty}.
+    Returns a new cache; the given one is not modified.
+
+    With a window (the model's layer stack always passes one: INF_WINDOW
+    where there is none) the slot is the ring-buffer slot ``cur % S_cache``.
+    Without one it is ``cur``, clamped to the last slot as the reference's
+    ``dynamic_update_slice`` clamps it."""
+    if "k_scale" in cache:
+        raise NotImplementedError("cache_update: the int8 kv_quant cache is "
+                                  "not ported yet")
+    s_cache = cache["k"].shape[1]
+    cur = int(cur)
+    slot = cur % s_cache if window is not None else min(cur, s_cache - 1)
+    out = dict(cache)
+    for name, new in (("k", k_new), ("v", v_new)):
+        t = cache[name].clone()
+        t[:, slot] = new[:, 0].to(t.dtype)
+        out[name] = t
+    out["pos"] = cache["pos"].clone()
+    out["pos"][slot] = cur
+    return out
+
+
+def decode_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
+                           *, cache: Dict[str, torch.Tensor], cur: int,
+                           window: Optional[int]):
+    """Single-token self-attention against the cache. x: (B,1,D). Returns
+    (y (B,1,D), the updated cache)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), int(cur), dtype=torch.int64,
+                           device=x.device)
+    q, k_new, v_new = attn_project_qkv(x, p, cfg, positions)
+    new_cache = cache_update(cache, k_new, v_new, cur, window)
+    pos_k = new_cache["pos"].expand(B, -1)
+    o = attention_ref(q, new_cache["k"], new_cache["v"], pos_q=positions,
+                      pos_k=pos_k, causal=True, window=window,
+                      softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale)
+    return attn_out(o, p), new_cache

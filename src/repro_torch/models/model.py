@@ -1,26 +1,34 @@
 """The port of ``models/model.py``: the padded vocab, the token embedding
 and the (tied) output head, which the paged serving engine uses, and the
 static generation path (``init_cache`` / ``prefill`` / ``decode_step``)
-for the ssm family (mamba2), which the static serving discipline uses.
-The parameter trees are ``models.params.init_params``.
+for the dense family (qwen3) and the ssm family (mamba2), which the static
+serving discipline uses. The parameter trees are
+``models.params.init_params``.
 
 The layer stack is a Python loop over the stacked ``(L, ...)`` layer tree
 where the reference runs ``lax.scan``; the caches come back stacked on L
-as there. The dense family's static path, the loss and the other
+as there. ``use_kernel`` picks the hand-written kernel of each family's
+prefill: the flash-attention kernel for every dense layer's attention, the
+SSD intra-chunk kernel for every mamba2 layer. The loss and the other
 families are not ported yet: their ``prefill`` / ``decode_step`` raise.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..kernels.flash_attention import flash_mha
 from . import ssm as ssm_lib
-from .layers import rmsnorm
+from .layers import (attention, attn_out, attn_project_qkv,
+                     decode_attention_block, mlp_block, rmsnorm)
 from .params import layer_slice, padded_vocab
+
+INF_WINDOW = 1 << 30  # "no window" sentinel for per-layer window arrays
 
 
 class Model:
@@ -28,9 +36,10 @@ class Model:
                  use_kernel: bool = True):
         self.cfg = cfg
         self.dtype = dtype
-        # the SSD prefill's intra-chunk kernel (CUDA tensors) or, with
-        # False, its plain version on any device (the reference run that
-        # the kernel's tokens are held against on the card)
+        # the prefill's kernel (flash attention for dense, the SSD
+        # intra-chunk terms for ssm) on CUDA tensors or, with False, the
+        # reference's plain code on any device (the run that the kernel's
+        # tokens are held against on the card)
         self.use_kernel = use_kernel
         # pad vocab to a multiple of 256, as the reference does (odd vocabs
         # shard cleanly there; here it keeps the two trees identical)
@@ -67,19 +76,50 @@ class Model:
         return logits
 
     def _static_family(self, what: str) -> None:
-        if self.cfg.family != "ssm":
+        if self.cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"Model.{what}: family {self.cfg.family!r} is not ported "
-                f"yet (the port's static path serves the ssm family)")
+                f"yet (the port's static path serves the dense and ssm "
+                f"families)")
+
+    def _window_array(self) -> List[int]:
+        """Each layer's attention window; INF_WINDOW where there is none,
+        so that the layer functions always get a window (and the decode
+        cache is always written at the ring-buffer slot ``cur % S``)."""
+        cfg = self.cfg
+        L = cfg.n_layers
+        if cfg.local_global_pattern:  # gemma2: even layers local, odd global
+            return [cfg.window if i % 2 == 0 else INF_WINDOW
+                    for i in range(L)]
+        if cfg.window is not None and cfg.family != "hybrid":
+            return [cfg.window] * L
+        return [INF_WINDOW] * L
 
     # -- caches -----------------------------------------------------------------
+    def cache_len(self, seq_len: int) -> int:
+        cfg = self.cfg
+        if cfg.window is not None and not cfg.local_global_pattern:
+            return min(cfg.window, seq_len)
+        return seq_len
+
     def init_cache(self, batch: int, seq_len: int, device=None
                    ) -> Dict[str, Any]:
-        """Zeroed decode cache (reference ``init_cache``); ``seq_len`` is
-        unused by the ssm family. ``device=None`` means the card."""
+        """Zeroed decode cache (reference ``init_cache``): the dense family's
+        K/V of ``cache_len(seq_len)`` slots a layer with ``pos = -1`` (empty)
+        in every slot; the ssm family's states (``seq_len`` unused).
+        ``device=None`` means the card."""
         self._static_family("init_cache")
-        cfg, s = self.cfg, self.cfg.ssm
         dev = resolve_device(device)
+        cfg = self.cfg
+        if cfg.family == "dense":
+            L, cl = cfg.n_layers, self.cache_len(seq_len)
+            shape = (L, batch, cl, cfg.n_kv_heads, cfg.head_dim)
+            return {"attn": {
+                "k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
+                "pos": torch.full((L, cl), -1, dtype=torch.int32,
+                                  device=dev)}}
+        s = cfg.ssm
         inner = s.expand * cfg.d_model
         nheads = inner // s.head_dim
         conv_dim = inner + 2 * s.n_groups * s.d_state
@@ -91,6 +131,58 @@ class Model:
                                 dtype=self.dtype, device=dev)}}
 
     # -- prefill / decode -------------------------------------------------------
+    def _dense_prefill(self, params, x: torch.Tensor, kv_chunk: int,
+                       extra_cache: int):
+        """The dense layers and the final norm over x (B, S, D), positions
+        ``arange(S)`` in every row. Returns (x, the K/V cache)."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        cl = self.cache_len(S)
+        kvs = []
+        for i, win in enumerate(self._window_array()):
+            lp = layer_slice(params["layers"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            q, k, v = attn_project_qkv(h, lp["attn"], cfg, positions)
+            if self.use_kernel:
+                # positions are the indices here, so the kernel's
+                # index-based mask is the reference's position-based one
+                o = flash_mha(q, k, v, causal=True, window=win,
+                              softcap=cfg.attn_softcap,
+                              scale=cfg.attn_logit_scale)
+            else:
+                o = attention(q, k, v, pos_q=positions, pos_k=positions,
+                              causal=True, window=win,
+                              softcap=cfg.attn_softcap,
+                              scale=cfg.attn_logit_scale, kv_chunk=kv_chunk)
+            x = x + attn_out(o, lp["attn"])
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            x = x + mlp_block(h, lp["mlp"], cfg)
+            kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
+        x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+        attn_cache = {n: torch.stack([c[n] for c in kvs])
+                      for n in ("k", "v", "pos")}
+        return x, _pad_kv(attn_cache, extra_cache, cfg)
+
+    def _dense_decode(self, params, cache, x: torch.Tensor, cur: int):
+        """One decode step of the dense layers from ``cache``. Returns
+        (x after the final norm, the new K/V cache)."""
+        cfg = self.cfg
+        new = []
+        for i, win in enumerate(self._window_array()):
+            lp = layer_slice(params["layers"], i)
+            lc = layer_slice(cache["attn"], i)
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            h, new_c = decode_attention_block(h, lp["attn"], cfg, cache=lc,
+                                              cur=cur, window=win)
+            x = x + h
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            x = x + mlp_block(h, lp["mlp"], cfg)
+            new.append(new_c)
+        x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+        return x, {n: torch.stack([c[n] for c in new])
+                   for n in ("k", "v", "pos")}
+
     def _ssm_stack(self, params, x: torch.Tensor, cache=None):
         """The mamba2 layers and the final norm over x (B, S, D): a prefill
         when ``cache`` is None, else one decode step from ``cache``.
@@ -114,22 +206,61 @@ class Model:
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 1024, extra_cache: int = 0):
         """Full-sequence forward that also fills a decode cache. Returns
-        (last-token logits (B, 1, V_pad), cache). ``kv_chunk`` and
-        ``extra_cache`` size attention caches; the ssm family has none.
-        Each layer's SSD runs the intra-chunk kernel once (``use_kernel``).
+        (last-token logits (B, 1, V_pad), cache). ``extra_cache`` reserves
+        cache slots for the decode steps that follow (serving path);
+        ``kv_chunk`` is the plain attention's chunk above
+        ``DENSE_ATTN_MAX_KV`` keys. With ``use_kernel`` each dense layer's
+        attention runs the flash kernel once, each ssm layer's SSD the
+        intra-chunk kernel once. The ssm family has no attention cache.
         """
         self._static_family("prefill")
-        x, ssm_cache = self._ssm_stack(params,
-                                       self._embed(params, batch["tokens"]))
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "dense":
+            x, cache = self._dense_prefill(params, x, kv_chunk, extra_cache)
+            return self._logits(params, x[:, -1:]), {"attn": cache}
+        x, ssm_cache = self._ssm_stack(params, x)
         return self._logits(params, x[:, -1:]), {"ssm": ssm_cache}
 
     def decode_step(self, params, cache, tokens: torch.Tensor, cur):
-        """One decode step. tokens (B, 1); ``cur`` (the position) is unused
-        by the ssm family. Returns (logits (B, 1, V_pad), new cache); the
-        given cache is not modified."""
+        """One decode step. tokens (B, 1); ``cur`` is the position of the
+        tokens (an int; unused by the ssm family). Returns (logits
+        (B, 1, V_pad), new cache); the given cache is not modified."""
         self._static_family("decode_step")
-        x, ssm_cache = self._ssm_stack(params, self._embed(params, tokens),
-                                       cache)
+        x = self._embed(params, tokens, pos0=int(cur))
         new_cache = dict(cache)
-        new_cache["ssm"] = ssm_cache
+        if self.cfg.family == "dense":
+            x, new_cache["attn"] = self._dense_decode(params, cache, x,
+                                                      int(cur))
+        else:
+            x, new_cache["ssm"] = self._ssm_stack(params, x, cache)
         return self._logits(params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def _collect_kv(k, v, cl, positions, dtype) -> Dict[str, torch.Tensor]:
+    """Prefill-path cache slice of one layer: the last ``cl`` positions."""
+    return {"pos": positions[0, -cl:].to(torch.int32),
+            "k": k[:, -cl:].to(dtype), "v": v[:, -cl:].to(dtype)}
+
+
+def _pad_kv(attn_cache: Dict[str, torch.Tensor], extra: int, cfg
+            ) -> Dict[str, torch.Tensor]:
+    """Right-pad prefilled KV caches (k/v (L, B, cl, Kv, Dh), pos (L, cl))
+    with ``extra`` empty slots (pos -1) so decode can append. No-op for
+    ring-buffered (windowed) caches already at their window size, and when
+    extra == 0."""
+    if extra <= 0:
+        return attn_cache
+    cl = attn_cache["k"].shape[2]
+    if cfg.window is not None and not cfg.local_global_pattern:
+        if cl >= cfg.window:
+            return attn_cache  # true ring buffer: decode wraps via cur % W
+        extra = min(extra, cfg.window - cl)  # grow toward the window size
+    out = dict(attn_cache)
+    out["k"] = F.pad(attn_cache["k"], (0, 0, 0, 0, 0, extra))
+    out["v"] = F.pad(attn_cache["v"], (0, 0, 0, 0, 0, extra))
+    out["pos"] = F.pad(attn_cache["pos"], (0, extra), value=-1)
+    return out

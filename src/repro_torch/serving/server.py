@@ -7,10 +7,11 @@ module, as in the reference:
 * **Static batching** (``ServePlanner`` / ``serve_batch``): all pending
   mail becomes ONE closed-loop generation intent; requests arriving
   mid-generation wait for the whole batch to finish. ``h_serve_batch``
-  runs ``Model.prefill`` and ``Model.decode_step`` (the ssm family in the
-  port), with the reference's quirks kept: prompts are left-padded with
-  token 0 (which an SSM does not mask), optional ``pad_batch`` dummy rows
-  are dropped from the result, and the argmax runs over the padded vocab.
+  runs ``Model.prefill`` and ``Model.decode_step`` (the dense and ssm
+  families in the port), with the reference's quirks kept: prompts are
+  left-padded with token 0 (which neither dense attention nor an SSM
+  masks), optional ``pad_batch`` dummy rows are dropped from the result,
+  and the argmax runs over the padded vocab.
 
 * **Continuous batching** (``ContinuousServePlanner`` / ``serve_step``):
   the planner is a step-level scheduler over the paged decode engine

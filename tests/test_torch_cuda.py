@@ -1,8 +1,9 @@
 """Tests of the port that need the card: each CUDA kernel (paged
-attention, the SSD intra-chunk terms) against its plain version, and the
-tokens of the paths they carry (the paged engine, static mamba2 serving)
-with the kernel against the plain path, on the card. Marked ``cuda``; they
-skip where there is no card. Run them on a machine with one:
+attention, the SSD intra-chunk terms, flash attention) against its plain
+version, and the tokens of the paths they carry (the paged engine, static
+mamba2 and qwen3 serving) with the kernel against the plain path, on the
+card. Marked ``cuda``; they skip where there is no card. Run them on a
+machine with one:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -14,7 +15,10 @@ are fp32 and sum in another order (online softmax over pages vs one
 softmax over the gather). For the SSD kernel: atol = rtol = 1e-4, the
 reference's tolerance for its SSD kernel against the oracle
 (``tests/test_kernels.py:104-109``); the kernel's cumsum is a parallel
-scan, the plain one another order.
+scan, the plain one another order. For flash attention: atol = rtol =
+2e-5 on unit-normal inputs, the reference's tolerance for its flash kernel
+against ``mha_ref`` (``tests/test_kernels.py:64-71``); an online softmax
+over key tiles against one softmax.
 """
 import pytest
 
@@ -23,6 +27,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_mha, flash_mha_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_plain)
 from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402,E501
@@ -192,4 +198,87 @@ def test_static_serving_tokens_kernel_vs_plain(cuda):
         ssd_intra.launches = 0
         outs.append(server.h_serve_batch(dict(args), env))
         assert ssd_intra.launches == (cfg.n_layers if use_kernel else 0)
+    assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def _mha_case(seed, b, sq, sk, h, kv, dh, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(device)
+            for shape in ((b, sq, h, dh), (b, sk, kv, dh), (b, sk, kv, dh))]
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 128, 128, 2, 2, 64), {}),                   # the reference's sweep
+    ((2, 256, 256, 4, 2, 128), {}),
+    ((1, 128, 384, 4, 1, 128), {}),
+    ((1, 200, 200, 2, 2, 80), {}),
+    ((2, 256, 256, 4, 2, 128), dict(causal=False)),  # and its variants
+    ((2, 256, 256, 4, 2, 128), dict(window=64)),
+    ((2, 256, 256, 4, 2, 128), dict(softcap=50.0)),
+    ((2, 256, 256, 4, 2, 128), dict(window=128, softcap=30.0)),
+    ((1, 200, 200, 2, 2, 64), dict(causal=False)),   # the Pallas pad-key case
+    ((1, 300, 130, 4, 2, 64), dict(causal=False)),   # Sq > Sk
+    ((1, 300, 130, 4, 2, 64), dict(causal=False, window=50)),  # rows 179..
+    ((2, 75, 75, 4, 2, 16), dict(window=1 << 30)),   # INF_WINDOW, smoke Dh
+    ((4, 675, 675, 32, 8, 128), {}),                 # qwen3_4b's prefill
+], ids=["mha", "gqa", "mqa_sk_gt_sq", "unaligned", "noncausal", "window",
+        "softcap", "window_softcap", "noncausal_unaligned", "sq_gt_sk",
+        "sq_gt_sk_window", "inf_window", "qwen3_full_width"])
+def test_flash_kernel_matches_plain(cuda, shape, kw):
+    q, k, v = _mha_case(0, *shape, device=cuda)
+    before = flash_mha.launches
+    out = flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_mha.launches == before + 1
+    ref = flash_mha_plain(q, k, v, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               equal_nan=False, **TOL)
+
+
+def test_flash_kernel_reads_strided_inputs(cuda):
+    """q/k/v as the projections leave them may be views with any strides;
+    the kernel reads them by their strides."""
+    q, k, v = _mha_case(1, 2, 96, 96, 4, 2, 32, cuda)
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)   # (B,S,H,Dh) view
+    ks = torch.stack([k, torch.zeros_like(k)], -1).flatten(-2)[..., ::2]
+    vs = torch.cat([v, v], dim=1)[:, 96:]                 # offset view
+    assert ks.stride(-1) == 2 and not vs.is_contiguous()
+    out = flash_mha(qs, ks, vs, window=40)
+    ref = flash_mha_plain(q, k, v, window=40)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    q, k, v = _mha_case(2, 1, 16, 16, 4, 2, 32, cuda)
+    with pytest.raises(TypeError):
+        flash_mha(q.double(), k, v)
+    with pytest.raises(ValueError):  # 3 kv heads do not divide 4
+        flash_mha(q, torch.cat([k, k[:, :, :1]], 2),
+                  torch.cat([v, v[:, :, :1]], 2))
+    with pytest.raises(ValueError):  # head_dim above the kernel's 128
+        flash_mha(*(torch.cat([t] * 5, 3) for t in (q, k, v)))
+    with pytest.raises(ValueError):
+        flash_mha(q, k, v, window=0)
+
+
+def test_dense_static_serving_tokens_kernel_vs_plain(cuda):
+    cfg = smoke(get_config("qwen3_4b"))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(6)
+    args = {"prompts": [rng.integers(1, cfg.vocab, size=n).tolist()
+                        for n in (5, 70, 17)], "max_new_tokens": 6,
+            "pad_batch": 4}
+    outs = []
+    for use_kernel in (True, False):
+        env = server.ServeEnv(model=Model(cfg, use_kernel=use_kernel),
+                              params=params, device=cuda)
+        flash_mha.launches = 0
+        outs.append(server.h_serve_batch(dict(args), env))
+        assert flash_mha.launches == (cfg.n_layers if use_kernel else 0)
     assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3

@@ -35,9 +35,11 @@ def test_port_modules_exist():
     assert {"repro_torch/serving/server.py", "repro_torch/core/agent.py",
             "repro_torch/kernels/paged_attention.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
-            "repro_torch/configs/mamba2_780m.py"} <= names
+            "repro_torch/configs/mamba2_780m.py",
+            "repro_torch/kernels/flash_attention.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
-        "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu"}
+        "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
+                     "flash_attention.cu"}
     assert (ROOT / "chip_smoke.py").exists()
 
 

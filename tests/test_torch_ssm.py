@@ -12,6 +12,8 @@ for its final state (``:85-90``), 2e-4 for model logits
 (``tests/test_models.py:84-86``). Both sides are fp32 and sum in another
 order, so equality to the last bit is not expected.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -395,9 +397,11 @@ def test_prefill_decode_consistency(mamba):
 
 
 def test_other_families_raise_naming_the_family():
-    model = Model(smoke(get_config("qwen3_4b")))
+    # the dense family's static path is ported too (test_torch_dense_static)
+    model = Model(dataclasses.replace(smoke(get_config("qwen3_4b")),
+                                      family="moe"))
     for call in (lambda: model.init_cache(1, 4, device="cpu"),
                  lambda: model.prefill({}, {"tokens": None}),
                  lambda: model.decode_step({}, {}, None, 0)):
-        with pytest.raises(NotImplementedError, match="dense"):
+        with pytest.raises(NotImplementedError, match="moe"):
             call()

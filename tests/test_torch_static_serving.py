@@ -10,6 +10,8 @@ contract and are checked as such: left-padding with token 0, dummy
 ``pad_batch`` rows dropped from the result, the argmax over the padded
 vocab, the first decoded position at the prompt length.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -186,7 +188,8 @@ def test_static_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_static_serving_of_an_unported_family_raises():
-    env = server.ServeEnv(model=Model(smoke(get_config("qwen3_4b"))),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
+    # the dense family is served too (tests/test_torch_dense_static.py)
+    cfg = dataclasses.replace(smoke(get_config("qwen3_4b")), family="moe")
+    env = server.ServeEnv(model=Model(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="moe"):
         server.h_serve_batch({"prompts": [[1, 2]], "max_new_tokens": 2}, env)
