@@ -32,9 +32,11 @@ code is not 0 and no result line is printed:
    are held against the plain path's, beside two broken controls on the
    plain path (attention not causal; the last layer's attention output
    zeroed) that must break those limits. Then prefill, decode, memory,
-   profiles, and ``flash_mha`` at the slice's own inputs beside its bound,
-   its plain version and ``scaled_dot_product_attention``. Slice 1's
-   parameters are freed after it.
+   profiles, whether the prefill's q/k/v needed a copy for the kernel,
+   and ``flash_mha`` at the slice's own inputs and at gemma2_9b's
+   attention shape (head dim 256, softcap) beside its bound, its plain
+   version and ``scaled_dot_product_attention``, with its blocks an SM.
+   Slice 1's parameters are freed after it.
 6. slice 2 — the governed static-batching serving path at the full width
    of ``mamba2_780m`` (48 layers, random fp32 weights): 8 requests in two
    ``serve_batch`` intents, each prefill running the SSD intra-chunk
@@ -736,12 +738,11 @@ def check_flash_attention():
     """Phase 3: the flash kernel against its plain version on the card, at
     the reference's test shapes and variants, the non-causal unaligned
     case (where the Pallas kernel lets pad keys in), Sq > Sk without and
-    with a window (rows that see no key give 0 in both), and the full
-    qwen3_4b prefill's shape. Tolerance atol = rtol = FLASH_TOL."""
+    with a window (rows that see no key give 0 in both), the full
+    qwen3_4b prefill's shape, head dim 256 (gemma2_9b's) with a window and
+    softcap and at gemma2's heads, one query head a kv head, and a head dim
+    that is not a multiple of 4. Tolerance atol = rtol = FLASH_TOL."""
     import numpy as np
-    import torch
-    from repro_torch.kernels.flash_attention import (flash_mha,
-                                                     flash_mha_plain)
     rng = np.random.default_rng(SEED)
     cases = [  # (label, (B, Sq, Sk, H, Kv, Dh), options)
         ("test mha", (1, 128, 128, 2, 2, 64), {}),
@@ -759,38 +760,55 @@ def check_flash_attention():
         ("Sq>Sk non-causal window (rows 179.. see no key: 0)",
          (1, 300, 130, 4, 2, 64), dict(causal=False, window=50)),
         ("full width", (4, 675, 675, 32, 8, 128), {}),
+        ("head dim 256, window+softcap", (1, 300, 300, 4, 2, 256),
+         dict(window=100, softcap=50.0)),
+        ("gemma2_9b heads, head dim 256", (2, 256, 256, 16, 8, 256), {}),
+        ("rep 1", (2, 200, 200, 4, 4, 128), {}),
+        ("head dim 50 (4-byte copies), rep 3", (1, 150, 150, 6, 2, 50),
+         dict(window=40)),
     ]
     worst = 0.0
     for label, shape, kw in cases:
-        q, k, v = _mha_case(rng, *shape)
-        out = flash_mha(q, k, v, **kw)
-        torch.cuda.synchronize()
-        ref = flash_mha_plain(q, k, v, **kw)
-        err = (out - ref).abs()
-        if not (torch.isfinite(out).all()
-                and torch.all(err <= FLASH_TOL + FLASH_TOL * ref.abs())):
-            raise AssertionError(f"flash_mha {label}: max abs err "
-                                 f"{err.max().item()} over atol = rtol = "
-                                 f"{FLASH_TOL}, or not finite")
+        err = _flash_err(label, _mha_case(rng, *shape), kw)
         print(f"  flash_mha {label}: (B,Sq,Sk,H,Kv,Dh) {shape} {kw or ''}"
-              f" max abs err {err.max().item():.3e} (atol = rtol "
-              f"{FLASH_TOL})")
-        worst = max(worst, err.max().item())
+              f" max abs err {err:.3e} (atol = rtol {FLASH_TOL})")
+        worst = max(worst, err)
     return worst
 
 
-def time_flash_attention(case, flush):
+def _flash_err(label, case, kw):
+    """Max abs err of the flash kernel against its plain version on one
+    input set; raises if over atol = rtol = FLASH_TOL or not finite."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_mha,
+                                                     flash_mha_plain)
+    q, k, v = case
+    out = flash_mha(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = flash_mha_plain(q, k, v, **kw)
+    err = (out - ref).abs()
+    if not (torch.isfinite(out).all()
+            and torch.all(err <= FLASH_TOL + FLASH_TOL * ref.abs())):
+        raise AssertionError(f"flash_mha {label}: max abs err "
+                             f"{err.max().item()} over atol = rtol = "
+                             f"{FLASH_TOL}, or not finite")
+    return err.max().item()
+
+
+def time_flash_attention(case, flush, softcap=None):
     """Kernel, plain version, bound and library call at one causal input
     set without a window (q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as the dense
-    prefill calls it."""
+    prefill calls it. The library call has no softcap: with one, it is
+    a yardstick of the same shapes only."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_mha,
                                                      flash_mha_plain)
     q, k, v = case
     bsz, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    ms = _time_ms(lambda: flash_mha(q, k, v), flush)
-    plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v), flush)
+    ms = _time_ms(lambda: flash_mha(q, k, v, softcap=softcap), flush)
+    plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v, softcap=softcap),
+                        flush)
     # the least work: 2 FLOPs per MAC of q.k and of p.v over the visible
     # (q, k) pairs (k <= q) of every query head; q and K/V (once per kv
     # head) read once, the output written once
@@ -909,15 +927,19 @@ def slice_qwen3_static(smi, cfg, params):
 
     def capture(q, k, v, **kw):
         if not captured:
-            captured.append(([t.clone() for t in (q, k, v)], kw))
+            captured.append(([t.clone() for t in (q, k, v)], kw,
+                             [t.stride(-1) != 1 for t in (q, k, v)]))
         return flash_mha(q, k, v, **kw)
     model_lib.flash_mha = capture
     try:
         kmodel.prefill(params, {"tokens": tok_t})
     finally:
         model_lib.flash_mha = flash_mha
-    case, kw = captured[0]
+    case, kw, copied = captured[0]
     del captured
+    print(f"  the prefill's q/k/v needed a contiguous copy for the kernel "
+          f"(head dim not unit-stride): "
+          f"{dict(zip('qkv', copied)) if any(copied) else 'none'}")
     if not (kw["causal"] and kw["window"] == INF_WINDOW
             and kw["softcap"] is None and kw["scale"] is None):
         raise AssertionError(f"the prefill called flash_mha with {kw}, "
@@ -933,7 +955,30 @@ def slice_qwen3_static(smi, cfg, params):
           f"kernel at {t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
     for k in ("flop", "bytes"):
         t.pop(k)
+    time_flash_gemma2(smi, flush)
     return {"launches": launches, "timing": t}
+
+
+def time_flash_gemma2(smi, flush):
+    """``flash_mha`` at gemma2_9b's attention shape (head dim 256, 16/8
+    heads, softcap 50) at the slice's (4, 675) batch, on unit-normal
+    inputs: kernel, plain, bound (visible pairs as above) and sdpa on the
+    same shapes without the softcap, which sdpa lacks."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import blocks_per_sm
+    case = _mha_case(np.random.default_rng(SEED), 4, 675, 675, 16, 8, 256)
+    err = _flash_err("at gemma2_9b's shape", case, dict(softcap=50.0))
+    t = time_flash_attention(case, flush, softcap=50.0)
+    print(f"  flash_mha at gemma2_9b's shape q {tuple(case[0].shape)} k/v "
+          f"{tuple(case[1].shape)} causal softcap 50: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flop']} FLOP, "
+          f"{t['bytes']} B), sdpa (no softcap) on K/V repeated to 16 heads "
+          f"{t['library_ms']:.4f} ms | kernel at "
+          f"{t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | max abs err vs "
+          f"plain {err:.3e} (atol = rtol {FLASH_TOL}) | on {smi}")
+    print("  flash_mha blocks an SM by head dim: " + ", ".join(
+        f"{dh}: {blocks_per_sm(dh)}" for dh in (64, 128, 256)))
 
 
 def build_kernels():

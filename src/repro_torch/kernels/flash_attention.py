@@ -10,7 +10,9 @@ It launches the kernel in ``csrc/flash_attention.cu`` (replacing the
 reference's Pallas ``_flash_kernel``) for CUDA tensors and takes
 ``flash_mha_plain`` only for CPU tensors; on the card it launches or
 raises, it never falls back. ``flash_mha.launches`` counts the kernel
-launches.
+launches. The kernel takes head dims up to 256, as the reference (which
+pads any head dim to a multiple of 128) does, and reads q/k/v by their
+strides; an input whose head dim is not unit-stride is copied first.
 
 Both follow ``ref.mha_ref`` where the Pallas kernel does not: keys past
 Sk never enter the softmax (the Pallas kernel, not causal and with Sk not
@@ -30,20 +32,36 @@ import torch
 from . import cuda_lib
 from ..models import layers
 
-# the kernel's limits: head_dim up to 128 (zero-padded to 64 or 128 in
-# shared memory), one thread block per (64-row query tile, head, batch row)
-MAX_HEAD_DIM = 128
-MAX_GRID_YZ = 65535
+# the kernel's limits: head_dim up to 256 (zero-padded to 64, 128 or 256 in
+# shared memory); one thread block per (tile of 64 or 128 packed query rows
+# (position, head of the kv head's group), kv head, batch row), the packed
+# rows and the blocks counted in 32-bit ints
+MAX_HEAD_DIM = 256
+MAX_INT32 = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_lib.load("flash_attention").flash_attention_f32
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(head_dim: int) -> int:
+    """Thread blocks of the kernel built for ``head_dim`` that one SM of
+    the current card holds at once (its registers and shared memory)."""
+    fn = cuda_lib.load("flash_attention").flash_attention_f32_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_int(0)
+    rc = fn(head_dim, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"flash_mha occupancy query failed: CUDA error "
+                           f"{rc}")
+    return n.value
 
 
 def _check(q, k, v, window, softcap) -> None:
@@ -51,7 +69,7 @@ def _check(q, k, v, window, softcap) -> None:
         raise ValueError(f"flash_mha needs q (B,Sq,H,Dh) and k/v "
                          f"(B,Sk,Kv,Dh); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    bsz, _, h, dh = q.shape
+    bsz, sq, h, dh = q.shape
     kv = k.shape[2]
     if k.shape[0] != bsz or k.shape[3] != dh or kv == 0 or h % kv:
         raise ValueError(f"shapes: q {tuple(q.shape)}, k/v {tuple(k.shape)}"
@@ -61,11 +79,13 @@ def _check(q, k, v, window, softcap) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
-    if not (0 < dh <= MAX_HEAD_DIM and h <= MAX_GRID_YZ
-            and bsz <= MAX_GRID_YZ):
+    rows = sq * (h // kv)
+    if not (0 < dh <= MAX_HEAD_DIM and rows <= MAX_INT32
+            and -(-rows // 64) * kv * bsz <= MAX_INT32):
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM} and "
-                         f"at most {MAX_GRID_YZ} heads and batch rows; got "
-                         f"head_dim {dh}, {h} heads, batch {bsz}")
+                         f"fewer than 2**31 packed rows and thread blocks; "
+                         f"got head_dim {dh}, q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     if softcap is not None and not softcap > 0:
@@ -76,15 +96,17 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               softcap: Optional[float] = None,
               scale: Optional[float] = None) -> torch.Tensor:
-    """Attention forward. q (B,Sq,H,Dh); k/v (B,Sk,Kv,Dh), Kv dividing H;
-    fp32, any strides. Returns (B,Sq,H,Dh), contiguous. ``scale`` defaults
-    to 1/sqrt(Dh)."""
+    """Attention forward. q (B,Sq,H,Dh); k/v (B,Sk,Kv,Dh), Kv dividing H,
+    Dh <= 256; fp32, any strides. Returns (B,Sq,H,Dh), contiguous.
+    ``scale`` defaults to 1/sqrt(Dh)."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for {q.device}")
     _check(q, k, v, window, softcap)
+    # the kernel copies rows of Dh contiguous floats
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     bsz, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((bsz, sq, h, dh), dtype=torch.float32,
@@ -98,8 +120,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                bsz, sq, sk, h, kv, dh, *q.stride(), *k.stride(),
-                *v.stride(), int(causal), win, float(scale),
+                bsz, sq, sk, h, kv, dh, *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], int(causal), win, float(scale),
                 float(softcap or 0.0),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -226,9 +226,15 @@ def _mha_case(seed, b, sq, sk, h, kv, dh, device):
     ((1, 300, 130, 4, 2, 64), dict(causal=False, window=50)),  # rows 179..
     ((2, 75, 75, 4, 2, 16), dict(window=1 << 30)),   # INF_WINDOW, smoke Dh
     ((4, 675, 675, 32, 8, 128), {}),                 # qwen3_4b's prefill
+    ((1, 300, 300, 4, 2, 256), dict(window=100, softcap=50.0)),  # Dh 256
+    ((2, 256, 256, 16, 8, 256), {}),                 # gemma2_9b's heads
+    ((2, 200, 200, 4, 4, 128), {}),                  # one head a kv head
+    ((1, 150, 150, 6, 2, 50), dict(window=40)),      # 4-byte copies, rep 3
 ], ids=["mha", "gqa", "mqa_sk_gt_sq", "unaligned", "noncausal", "window",
         "softcap", "window_softcap", "noncausal_unaligned", "sq_gt_sk",
-        "sq_gt_sk_window", "inf_window", "qwen3_full_width"])
+        "sq_gt_sk_window", "inf_window", "qwen3_full_width",
+        "head_dim_256_window_softcap", "gemma2_heads_head_dim_256", "rep_1",
+        "head_dim_not_multiple_of_4"])
 def test_flash_kernel_matches_plain(cuda, shape, kw):
     q, k, v = _mha_case(0, *shape, device=cuda)
     before = flash_mha.launches
@@ -260,8 +266,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # 3 kv heads do not divide 4
         flash_mha(q, torch.cat([k, k[:, :, :1]], 2),
                   torch.cat([v, v[:, :, :1]], 2))
-    with pytest.raises(ValueError):  # head_dim above the kernel's 128
-        flash_mha(*(torch.cat([t] * 5, 3) for t in (q, k, v)))
+    with pytest.raises(ValueError):  # head_dim above the kernel's 256
+        flash_mha(*(torch.cat([t] * 9, 3) for t in (q, k, v)))
     with pytest.raises(ValueError):
         flash_mha(q, k, v, window=0)
 

@@ -23,7 +23,7 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_mha, flash_mha_plain)
+    _check, flash_mha, flash_mha_plain)
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=2e-5, equal_nan=False)
@@ -66,8 +66,10 @@ def _port(q, k, v, **kw):
     ((2, 256, 256, 4, 2, 128), dict(causal=True, window=64)),
     ((2, 256, 256, 4, 2, 128), dict(causal=True, softcap=50.0)),
     ((2, 256, 256, 4, 2, 128), dict(causal=True, window=128, softcap=30.0)),
+    # head_dim 256 (gemma2_9b's), with gemma2's softcap and a window
+    ((1, 256, 256, 2, 1, 256), dict(causal=True, window=100, softcap=50.0)),
 ], ids=["mha", "gqa", "mqa_sk_gt_sq", "unaligned", "noncausal", "window",
-        "softcap", "window_softcap"])
+        "softcap", "window_softcap", "head_dim_256_window_softcap"])
 def test_matches_pallas_kernel_and_oracle(shape, kw):
     q, k, v = _args(0, *shape)
     got = _port(q, k, v, **kw)
@@ -114,6 +116,17 @@ def test_inf_window_is_no_window():
     q, k, v = (torch.from_numpy(a) for a in _args(3, 2, 40, 40, 4, 2, 16))
     np.testing.assert_array_equal(flash_mha(q, k, v, window=1 << 30).numpy(),
                                   flash_mha(q, k, v).numpy())
+
+
+def test_kernel_limits_take_head_dim_256_not_264():
+    """The kernel pads head dims to 64, 128 or 256, as the reference pads
+    to a multiple of 128: 256 (gemma2_9b's) is taken, 264 refused."""
+    def qkv(dh):
+        return (torch.zeros((1, 4, 2, dh)), torch.zeros((1, 4, 1, dh)),
+                torch.zeros((1, 4, 1, dh)))
+    _check(*qkv(256), None, 50.0)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        _check(*qkv(264), None, None)
 
 
 def test_a_device_without_a_kernel_raises():
