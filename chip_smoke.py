@@ -91,23 +91,56 @@ def _smi() -> str:
         check=True, timeout=60).stdout.strip()
 
 
+# Timed runs must reach the card's queue faster than it runs them, or the
+# time the host takes to launch them is timed too. So the card is first
+# given SPIN_MATMULS products of two (SPIN_N, SPIN_N) fp32 matrices (a few
+# ms each on an H100 with TF32 off), and the runs are queued behind them.
+SPIN_N, SPIN_MATMULS = 4096, 32
+_spin_mats = []
+
+
+def _spin(n_matmuls: int) -> None:
+    import torch
+    if not _spin_mats:
+        a = torch.randn((SPIN_N, SPIN_N), device="cuda")
+        _spin_mats.extend((a, torch.empty_like(a)))
+    a, out = _spin_mats
+    for _ in range(n_matmuls):
+        torch.mm(a, a, out=out)
+
+
 def _time_ms(fn, flush, n: int = 30) -> float:
     """Mean device time of ``fn`` over ``n`` runs, each timed with CUDA
     events and each after a write of ``flush`` (larger than the 50 MB L2)
     so that every run finds its inputs in device memory, as a decode step
-    finds another layer's K/V."""
+    finds another layer's K/V. The runs are queued behind a spin of the
+    card. A run's events can hold a wait on the host only if the card
+    reached its start event before the host had queued the whole run; if
+    any run's start event had completed by then, the runs are timed again
+    behind twice the spin."""
     import torch
     for _ in range(3):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / n
+    spin = SPIN_MATMULS
+    while True:
+        torch.cuda.synchronize()
+        _spin(spin)
+        late = False
+        for s, e in zip(starts, ends):
+            flush.zero_()
+            s.record()
+            fn()
+            e.record()
+            late = late or s.query()
+        torch.cuda.synchronize()
+        if not late:
+            return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / n
+        if spin >= 16 * SPIN_MATMULS:
+            raise RuntimeError("the host could not queue the timed runs "
+                               "while the card was busy")
+        spin *= 2
 
 
 def _paged_case(rng, s_n, h, kv, dh, page, n_pages_pool, ctx_lens):
@@ -131,9 +164,14 @@ def check_paged_attention():
     """Phase 3: the CUDA kernel against its plain version on the card."""
     import numpy as np
     import torch
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.paged_attention import (_split_plan,
+                                                     paged_attention,
                                                      paged_attention_plain)
     rng = np.random.default_rng(SEED)
+    # a chunk of several 32-key tiles a block (its size chosen from shapes
+    # by _split_plan): 24 lanes of 128 pages
+    chunk = _split_plan(24, 8, 4, 128 * 16, cuda_lib.n_sm(0))[1]
     cases = [  # (label, shape, options)
         ("gqa 4/4", dict(s_n=3, h=4, kv=4, dh=32, page=8, n_pages_pool=16,
                          ctx_lens=[5, 16, 23]), {}),
@@ -154,6 +192,21 @@ def check_paged_attention():
          dict(s_n=8, h=32, kv=8, dh=128, page=16, n_pages_pool=520,
               ctx_lens=[0, 1, 15, 16, 17, 300, 1000, 2047]),
          dict(softcap=50.0, scale=0.05)),
+        ("many splits", dict(s_n=2, h=32, kv=8, dh=128, page=16,
+                             n_pages_pool=800, ctx_lens=[4096, 8191]), {}),
+        ("split edges", dict(s_n=7, h=32, kv=8, dh=128, page=16,
+                             n_pages_pool=64,
+                             ctx_lens=[31, 32, 33, 63, 64, 65, 0]), {}),
+        (f"long chunks ({chunk} keys)",
+         dict(s_n=24, h=32, kv=8, dh=128, page=16, n_pages_pool=800,
+              ctx_lens=[chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 2047,
+                        0] * 4), {}),
+        ("page 256", dict(s_n=3, h=32, kv=8, dh=128, page=256,
+                          n_pages_pool=12, ctx_lens=[255, 700, 257]), {}),
+        ("page 64 head dim 256", dict(s_n=3, h=16, kv=8, dh=256, page=64,
+                                      n_pages_pool=24,
+                                      ctx_lens=[64, 600, 129]),
+         dict(softcap=50.0)),
     ]
     worst = 0.0
     for label, shape, kw in cases:
@@ -163,14 +216,30 @@ def check_paged_attention():
         ref = paged_attention_plain(*case, **kw)
         err = (out - ref).abs().max().item()
         zero_rows = out[case[4] == 0]
+        same = torch.equal(out, paged_attention(*case, **kw))
         if not (err <= KERNEL_TOL and torch.all(zero_rows == 0)
-                and torch.isfinite(out).all()):
+                and torch.isfinite(out).all() and same):
             raise AssertionError(f"paged_attention {label}: max abs err "
-                                 f"{err} > {KERNEL_TOL} or bad zero rows")
+                                 f"{err} > {KERNEL_TOL}, bad zero rows or "
+                                 f"a second call not bitwise equal")
         print(f"  paged_attention {label}: q {tuple(case[0].shape)} "
               f"page {shape['page']} ctx {shape['ctx_lens']} {kw or ''}"
-              f" max_abs_err {err:.3e} (tol {KERNEL_TOL})")
+              f" max_abs_err {err:.3e} (tol {KERNEL_TOL}); a second call "
+              f"bitwise equal")
         worst = max(worst, err)
+        if label == "full width":
+            control = case, out
+    # broken control: the plain version one key short of every context
+    # must miss the kernel by more than the tolerance
+    (q, kp, vp, bt, cl), out = control
+    short = paged_attention_plain(q, kp, vp, bt, (cl - 1).clamp(min=0))
+    miss = (out - short).abs().max().item()
+    print(f"  control, plain at context_lens - 1 (full width): max abs diff "
+          f"{miss:.3e} from the kernel "
+          f"({'over' if miss > KERNEL_TOL else 'within'} the tolerance)")
+    if not miss > KERNEL_TOL:
+        raise AssertionError("paged_attention: the check cannot see a "
+                             "missing key")
     return worst
 
 
@@ -178,11 +247,23 @@ def time_paged_attention(case, flush):
     """Kernel, plain version, bound and library call at one input set."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.paged_attention import (_split_plan,
+                                                     paged_attention,
                                                      paged_attention_plain)
     q, kp, vp, bt, cl = case
     s_n, h, dh = q.shape
     kv = kp.shape[2]
+    # the kernel's split (from shapes) and the blocks that find keys
+    hb, chunk, n_splits = _split_plan(s_n, kv, h // kv,
+                                      bt.shape[1] * kp.shape[1],
+                                      cuda_lib.n_sm(q.device))
+    n_hg = -(-(h // kv) // hb)
+    active = sum(-(-min(c, bt.shape[1] * kp.shape[1]) // chunk)
+                 for c in cl.tolist()) * kv * n_hg
+    blocks = (f"{n_splits} splits of {chunk} keys, {hb} query heads a "
+              f"block: {active} of {n_splits * kv * n_hg * s_n} blocks "
+              f"find keys")
     ms = _time_ms(lambda: paged_attention(*case), flush)
     plain_ms = _time_ms(lambda: paged_attention_plain(*case), flush)
     # the least work: q and the context's K/V rows read once, the block
@@ -207,7 +288,7 @@ def time_paged_attention(case, flush):
         q4, kd, vd, attn_mask=mask), flush)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, ctx=cl.tolist())
+                library_ms=library_ms, ctx=cl.tolist(), blocks=blocks)
 
 
 def make_requests(cfg, rng, n: int = 8):
@@ -303,6 +384,19 @@ def check_ssd_intra():
         ("G<H 2/8", dict(b=2, nc=2, q=32, h=8, p=16, g=2, n=32), None, False),
         ("full width, A=-1", dict(b=4, nc=3, q=256, h=48, p=64, g=1, n=128),
          -1.0, True),
+        ("48 heads share C B^T, A=-1", dict(b=2, nc=3, q=256, h=48, p=64,
+                                            g=1, n=128), -1.0, True),
+        ("G=2 of 8, Q=128", dict(b=2, nc=4, q=128, h=8, p=64, g=2, n=64),
+         None, False),
+        ("44 heads, a partial head block", dict(b=2, nc=8, q=256, h=44,
+                                                p=64, g=1, n=128), -1.0,
+         True),
+        ("Q=1024, A=-1", dict(b=2, nc=4, q=1024, h=24, p=64, g=1, n=128),
+         -1.0, True),
+        ("P 20, N 36", dict(b=1, nc=2, q=96, h=6, p=20, g=3, n=36), None,
+         False),
+        ("P 6, N 10 (4-byte copies)", dict(b=1, nc=2, q=70, h=4, p=6, g=2,
+                                           n=10), None, False),
     ]
     worst = 0.0
     for label, shape, a, full in cases:
@@ -326,6 +420,22 @@ def check_ssd_intra():
               + f" (rtol {KERNEL_TOL}, atol {KERNEL_TOL}"
               + (" x max|plain|)" if full else ")"))
         worst = max(worst, *errs)
+        if label == "full width, A=-1":
+            control = case, out[1]
+    # broken control: the plain version with the last row of each chunk's
+    # x zeroed must miss the kernel's states by more than the limit
+    case, kstates = control
+    x = case[0].clone()
+    x[:, :, -1] = 0
+    states = ssd_intra_plain(x, *case[1:])[1]
+    miss = (kstates - states).abs()
+    limit = KERNEL_TOL * (states.abs().max() + states.abs())
+    over = bool(torch.any(miss > limit))
+    print(f"  control, plain with each chunk's last row of x zeroed (full "
+          f"width): states max abs diff {miss.max().item():.3e} from the "
+          f"kernel ({'over' if over else 'within'} the limit)")
+    if not over:
+        raise AssertionError("ssd_intra: the check cannot see a missing row")
     return worst
 
 
@@ -334,10 +444,18 @@ def time_ssd_intra(case, flush):
     one input set (x (B,NC,Q,H,P), dt, a, b/c (B,NC,Q,G,N)). No single
     PyTorch call computes ssd_intra, so ``library_ms`` is None."""
     import torch
-    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.ssd_scan import (_block_plan, ssd_intra,
+                                              ssd_intra_plain)
     x, dt, a, b, c = case
     bsz, nc, q, h, p = x.shape
     g, n = b.shape[3], b.shape[4]
+    # the kernel's blocks (from shapes): y-blocks of hb heads a 64-row query
+    # tile, and one state block a head
+    hb, _ = _block_plan(bsz * nc, q, h, g, p, n, cuda_lib.n_sm(x.device))
+    n_y = -(-q // 64) * -(-(h // g) // hb) * g * bsz * nc
+    blocks = (f"{n_y} y-blocks of {hb} heads and {h * bsz * nc} state "
+              f"blocks")
     ms = _time_ms(lambda: ssd_intra(*case), flush)
     plain_ms = _time_ms(lambda: ssd_intra_plain(*case), flush)
     # the least work, 2 FLOPs per MAC: per (row, chunk) the lower triangle
@@ -372,7 +490,7 @@ def time_ssd_intra(case, flush):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=None, yardstick_ms=yardstick_ms, flop=n_ops,
-                bytes=n_bytes)
+                bytes=n_bytes, blocks=blocks)
 
 
 def _wrappers():
@@ -719,8 +837,9 @@ def slice_mamba2(smi):
           f" bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flop']} "
           f"FLOP, {t['bytes']} B), yardstick (two batched matmuls with the "
           f"mask between) {t['yardstick_ms']:.4f} ms | kernel at "
-          f"{t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
-    for k in ("flop", "bytes", "yardstick_ms"):
+          f"{t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | {t['blocks']} | on "
+          f"{smi}")
+    for k in ("flop", "bytes", "yardstick_ms", "blocks"):
         t.pop(k)
     return {"launches": launches, "timing": t}
 
@@ -1186,7 +1305,7 @@ def slice_qwen3(smi):
           f"{tuple(case[3].shape)} ctx {t['ctx']}: kernel {t['ms']:.4f} ms,"
           f" plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']}), sdpa on pre-gathered K/V "
-          f"{t['library_ms']:.4f} ms | on {smi}")
+          f"{t['library_ms']:.4f} ms | {t['blocks']} | on {smi}")
     full = _paged_case(np.random.default_rng(SEED + 1), s_n=8, h=32, kv=8,
                        dh=128, page=16, n_pages_pool=520,
                        ctx_lens=[0, 1, 15, 16, 17, 300, 1000, 2047])
@@ -1194,8 +1313,10 @@ def slice_qwen3(smi):
     print(f"  paged_attention at S=8 ctx {tf['ctx']}: kernel "
           f"{tf['ms']:.4f} ms, plain {tf['plain_ms']:.4f} ms, bound "
           f"{tf['bound_ms']:.4f} ms ({tf['bound_by']}), sdpa on "
-          f"pre-gathered K/V {tf['library_ms']:.4f} ms | on {smi}")
+          f"pre-gathered K/V {tf['library_ms']:.4f} ms | {tf['blocks']} | "
+          f"on {smi}")
     t.pop("ctx")
+    t.pop("blocks")
     return {"launches": launches, "timing": t, "cfg": cfg, "params": params}
 
 

@@ -11,6 +11,7 @@ module, and there is no ``nvcc`` there.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -57,6 +58,13 @@ def build(name: str) -> str:
                            f"{proc.stderr}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or none
     return proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def n_sm(device) -> int:
+    """The card's SM count, which the wrappers size their grids by."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

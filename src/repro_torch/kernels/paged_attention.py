@@ -6,27 +6,39 @@ One query token per sequence attends to K/V that live in a page pool
 ``paged_attention`` launches the kernel in ``csrc/paged_attention.cu``
 (replacing the reference's Pallas ``_paged_kernel``) for CUDA tensors and
 takes ``paged_attention_plain`` only for CPU tensors; on the card it
-launches or raises, it never falls back. ``paged_attention.launches``
-counts the kernel launches.
+launches or raises, it never falls back. The kernel splits each
+sequence's keys over blocks and merges their partials in a second pass
+(``_split_plan`` picks the split from shapes alone); both passes launch
+from one call. ``paged_attention.launches`` counts calls that launched
+the kernel, one per attention: a decode step of the continuous engine
+adds one per layer (36 for ``qwen3_4b``).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import cuda_lib
 
 NEG_INF = -1e30
+# the kernel's limits and tiling: keys a block holds at once, query heads
+# of one kv head a block serves, and blocks per SM to aim the split at.
+# The first three mirror csrc/paged_attention.cu's kMaxHeadDim, kTileKeys
+# and kMaxHeads, whose entry point refuses a launch that breaks them.
+MAX_HEAD_DIM = 256
+TILE_KEYS = 32
+MAX_HEADS_PER_BLOCK = 16
+BLOCKS_PER_SM = 16
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_lib.load("paged_attention").paged_attention_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -60,15 +72,32 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, softcap):
             raise ValueError(f"{name} must be contiguous")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    page = k_pages.shape[1]
-    # the kernel moves K/V rows as 16-byte vectors, a tile of whole pages
-    # (64 keys, or one larger page) held by at most 1024 threads x 4
-    tile = page if page >= 64 else (64 // page) * page
-    if dh % 4 or tile * dh > 16384 or k_pages.data_ptr() % 16 \
+    # the kernel moves K/V rows as 16-byte vectors and holds a 32-key tile
+    # of K and V for up to 16 query heads in shared memory
+    if dh % 4 or dh > MAX_HEAD_DIM or k_pages.data_ptr() % 16 \
             or v_pages.data_ptr() % 16:
-        raise ValueError(f"the kernel needs head_dim % 4 == 0, a tile of "
-                         f"pages x head_dim <= 16384 and 16-byte aligned "
-                         f"pages; got head_dim {dh}, page_size {page}")
+        raise ValueError(f"the kernel needs head_dim % 4 == 0, head_dim <= "
+                         f"{MAX_HEAD_DIM} and 16-byte aligned pages; got "
+                         f"head_dim {dh}")
+
+
+@functools.lru_cache(maxsize=256)
+def _split_plan(s_n: int, kv: int, rep: int, max_keys: int,
+                n_sm: int) -> Tuple[int, int, int]:
+    """How the kernel splits the work, from shapes alone (never from
+    ``context_lens``, which lives on the card): ``(hb, chunk, n_splits)``.
+
+    ``hb`` query heads of a kv head share a block (at most 16, groups as
+    even as they can be). The ``max_keys`` keys the block table can reach
+    are cut into ``n_splits`` chunks of ``chunk`` keys (a multiple of 32),
+    as many as bring the grid to ``BLOCKS_PER_SM`` blocks an SM, one
+    32-key tile a block at the least."""
+    n_hg = -(-rep // MAX_HEADS_PER_BLOCK)
+    hb = -(-rep // n_hg)
+    n_tiles = max(1, -(-max_keys // TILE_KEYS))
+    want = -(-BLOCKS_PER_SM * n_sm // (s_n * kv * n_hg))
+    tiles_per_split = -(-n_tiles // max(1, min(want, n_tiles)))
+    return hb, TILE_KEYS * tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -99,11 +128,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if s_n == 0:
         return out
+    n_pages = block_tables.shape[1]
+    hb, chunk, n_splits = _split_plan(s_n, kv, h // kv, n_pages * page,
+                                      cuda_lib.n_sm(q.device))
+    # scratch: each split's (m, l), then its acc[Dh], per (sequence, query
+    # head)
+    part = torch.empty(s_n * h * n_splits * (dh + 2), dtype=torch.float32,
+                       device=q.device)
     fn = _kernel_fn()
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 block_tables.data_ptr(), context_lens.data_ptr(),
-                out.data_ptr(), s_n, h, kv, dh, page, block_tables.shape[1],
+                out.data_ptr(), part.data_ptr(),
+                part.data_ptr() + 4 * (s_n * h * n_splits * 2),
+                s_n, h, kv, dh, page, n_pages, chunk, n_splits, hb,
                 float(scale), float(softcap or 0.0),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

@@ -11,7 +11,7 @@ Per (batch, chunk, head), with ``cs = cumsum(dt * a)`` along the chunk:
 reference's Pallas ``_ssd_kernel``) for CUDA tensors and takes
 ``ssd_intra_plain`` only for CPU tensors; on the card it launches or
 raises, it never falls back. ``ssd_intra.launches`` counts the kernel
-launches.
+launches, one per call (48 per prefill of ``mamba2_780m``).
 
 B and C come per group, ``(B, NC, Q, G, N)``, and head ``h`` reads group
 ``h // (H / G)``; for ``G = H`` this is the reference's signature. The
@@ -28,18 +28,24 @@ import torch
 
 from . import cuda_lib
 
-# the kernel's limits: a (64 x P) tile of x and two (64 x N) tiles of B/C
-# in shared memory, one thread block per (64-row tile, head, batch x chunk)
+# the kernel's limits: a (64 x P) tile of x, C and B staged 32 columns of
+# N at a time, cs of a block's heads over the chunk in shared memory.
+# MAX_HEAD_DIM mirrors csrc/ssd_scan.cu's kT, whose entry point refuses a
+# launch with P > kT; the other limits are this wrapper's, and keep the
+# block's shared memory within the card's.
 MAX_HEAD_DIM = 64
 MAX_D_STATE = 256
 MAX_CHUNK = 4096
-MAX_GRID_Z = 65535
+# heads a y-block serves at most, and the floats their cs and dt arrays
+# may take in shared memory (the chunk's length each, twice)
+MAX_HEADS_PER_BLOCK = 8
+CS_FLOATS = 8192
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     fn = cuda_lib.load("ssd_scan").ssd_intra_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -67,11 +73,30 @@ def _check(x, dt, a, b, c) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_D_STATE
-            and 0 < q <= MAX_CHUNK and bsz * nc <= MAX_GRID_Z):
+            and 0 < q <= MAX_CHUNK):
         raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, "
-                         f"d_state <= {MAX_D_STATE}, chunk <= {MAX_CHUNK} "
-                         f"and batch x chunks <= {MAX_GRID_Z}; got P {p}, "
-                         f"N {n}, Q {q}, B*NC {bsz * nc}")
+                         f"d_state <= {MAX_D_STATE} and chunk <= "
+                         f"{MAX_CHUNK}; got P {p}, N {n}, Q {q}")
+
+
+def _block_plan(bnc: int, q: int, h: int, g: int, p: int, n: int,
+                n_sm: int) -> Tuple[int, int]:
+    """How the kernel cuts the work, from shapes: ``(hb, top_levels)``.
+
+    A y-block serves ``hb`` heads of one group (at most 8, and as many as
+    the cs and dt arrays of a chunk fit in ``CS_FLOATS``), halved while
+    the y-blocks alone would not fill two blocks an SM. Of the query-tile
+    levels, the ``top_levels`` longest (whose blocks do at least a state
+    block's work) run before the state blocks, the rest after them."""
+    hg, n_qt = h // g, -(-q // 64)
+    ld = (q + 2) & ~1
+    hb = max(1, min(hg, MAX_HEADS_PER_BLOCK, CS_FLOATS // (2 * ld)))
+    while hb > 1 and n_qt * -(-hg // hb) * g * bnc < 2 * n_sm:
+        hb = (hb + 1) // 2
+    state_work = q * p * n
+    top = sum((qt + 1) * 64 * 64 * (n + hb * p) >= state_work
+              for qt in range(n_qt))
+    return hb, top
 
 
 def ssd_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -96,11 +121,14 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, states, decay
+    hb, top = _block_plan(bsz * nc, q, h, g, p, n, cuda_lib.n_sm(x.device))
+    vec = (p % 4 == 0 and n % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, b, c, y, states)))
     fn = _kernel_fn()
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), y.data_ptr(), states.data_ptr(),
-                decay.data_ptr(), bsz * nc, q, h, p, g, n,
+                decay.data_ptr(), bsz * nc, q, h, p, g, n, hb, top, int(vec),
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_intra kernel launch failed: CUDA error "

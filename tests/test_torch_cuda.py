@@ -27,11 +27,13 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
+from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_mha, flash_mha_plain)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention, paged_attention_plain)
-from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain  # noqa: E402,E501
+    _split_plan, paged_attention, paged_attention_plain)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    _block_plan, ssd_intra, ssd_intra_plain)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.serving import server  # noqa: E402
@@ -82,8 +84,19 @@ def _case(seed, s_n, h, kv, dh, page, n_pages_pool, ctx_lens, device):
           ctx_lens=[11, 12, 61, 200]), {}),
     (dict(s_n=3, h=8, kv=4, dh=128, page=32, n_pages_pool=40,
           ctx_lens=[31, 33, 300]), {}),
+    (dict(s_n=2, h=32, kv=8, dh=128, page=16, n_pages_pool=800,
+          ctx_lens=[4096, 8191]), {}),
+    (dict(s_n=7, h=32, kv=8, dh=128, page=16, n_pages_pool=64,
+          ctx_lens=[31, 32, 33, 63, 64, 65, 0]), {}),
+    (dict(s_n=3, h=32, kv=8, dh=128, page=256, n_pages_pool=12,
+          ctx_lens=[255, 700, 257]), {}),
+    (dict(s_n=3, h=16, kv=8, dh=256, page=64, n_pages_pool=24,
+          ctx_lens=[64, 600, 129]), dict(softcap=50.0)),
+    (dict(s_n=5, h=32, kv=8, dh=128, page=16, n_pages_pool=80,
+          ctx_lens=[0, 300, 0, 17, 0]), {}),
 ], ids=["gqa4-4", "gqa4-2", "gqa8-1", "ragged", "softcap", "full_width",
-        "page12", "page32"])
+        "page12", "page32", "many_splits", "split_edges", "page256",
+        "page64_head_dim_256", "inactive_lanes"])
 def test_kernel_matches_plain(cuda, shape, kw):
     case = _case(0, device=cuda, **shape)
     before = paged_attention.launches
@@ -94,6 +107,29 @@ def test_kernel_matches_plain(cuda, shape, kw):
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
     zero = case[4] == 0
     assert torch.all(out[zero] == 0)  # inactive lanes: exact zeros
+
+
+def test_kernel_split_edges_with_long_chunks(cuda):
+    """With many lanes a block walks several 32-key tiles of its chunk
+    (its size chosen from shapes by ``_split_plan``); contexts end just
+    before, at and just after a chunk's edge."""
+    _, chunk, n_splits = _split_plan(24, 8, 4, 128 * 16,
+                                     cuda_lib.n_sm(cuda))
+    assert chunk > 32 and n_splits > 1
+    ctx = [chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 2047, 0] * 4
+    case = _case(5, 24, 32, 8, 128, 16, 800, ctx, cuda)
+    assert case[3].shape[1] == 128
+    out = paged_attention(*case)
+    ref = paged_attention_plain(*case)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert torch.all(out[case[4] == 0] == 0)
+
+
+def test_kernel_is_deterministic(cuda):
+    """The partials merge in split order: two calls give the same bits."""
+    case = _case(6, 4, 32, 8, 128, 16, 400, [473, 149, 3000, 577], cuda)
+    first = paged_attention(*case)
+    assert all(torch.equal(first, paged_attention(*case)) for _ in range(3))
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -156,7 +192,15 @@ def _ssd_case(seed, b, nc, q, h, p, g, n, device, a=None, dt_shift=0.0):
      dict(a=-1.0, dt_shift=0.5)),                              # overflow
     (dict(b=1, nc=1, q=300, h=2, p=16, g=1, n=32),
      dict(a=-1.0, dt_shift=0.5)),             # cumsum past 256 rows, carry
-], ids=["oracle-case", "b2", "q64", "g2-of-8", "q80", "overflow", "q300"])
+    (dict(b=2, nc=3, q=256, h=48, p=64, g=1, n=128),
+     dict(a=-1.0)),                           # mamba2: 48 heads share C B^T
+    (dict(b=2, nc=4, q=128, h=8, p=64, g=2, n=64), {}),  # 2 groups of 4
+    (dict(b=2, nc=4, q=1024, h=24, p=64, g=1, n=128),
+     dict(a=-1.0)),                           # groups of key tiles, RMW of y
+    (dict(b=1, nc=2, q=96, h=6, p=20, g=3, n=36), {}),  # P, N not 32-wide
+    (dict(b=1, nc=2, q=70, h=4, p=6, g=2, n=10), {}),   # 4-byte copies
+], ids=["oracle-case", "b2", "q64", "g2-of-8", "q80", "overflow", "q300",
+        "reuse_h48_g1", "g2_of_8_q128", "q1024", "p20_n36", "p6_n10"])
 def test_ssd_kernel_matches_plain(cuda, shape, kw):
     case = _ssd_case(0, device=cuda, **shape, **kw)
     before = ssd_intra.launches
@@ -164,6 +208,17 @@ def test_ssd_kernel_matches_plain(cuda, shape, kw):
     torch.cuda.synchronize()
     assert ssd_intra.launches == before + 1
     for got, want in zip(out, ssd_intra_plain(*case)):
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **SSD_TOL)
+
+
+def test_ssd_kernel_partial_head_block(cuda):
+    """44 heads in blocks of 8: the last y-block of each chunk serves 4."""
+    hb, _ = _block_plan(16, 256, 44, 1, 64, 128, cuda_lib.n_sm(cuda))
+    assert hb > 1 and 44 % hb
+    case = _ssd_case(2, 2, 8, 256, 44, 64, 1, 128, cuda, a=-1.0)
+    for got, want in zip(ssd_intra(*case), ssd_intra_plain(*case)):
         assert torch.isfinite(got).all()
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    **SSD_TOL)

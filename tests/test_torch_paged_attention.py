@@ -21,7 +21,8 @@ import numpy as np  # noqa: E402
 from repro.kernels.paged_attention import paged_attention as jax_paged  # noqa: E402
 from repro.kernels.paged_attention import paged_attention_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_attention, paged_attention_plain)
+    _check as kernel_check, _split_plan, paged_attention,
+    paged_attention_plain)
 
 torch.set_num_threads(1)
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -98,3 +99,32 @@ def test_wrapper_has_no_fallback_off_the_cpu():
         ctx_lens=[3, 5])]
     with pytest.raises(ValueError):
         paged_attention(*case)
+
+
+def test_kernel_takes_any_page_size():
+    """The kernel gathers K/V one key row at a time, so a page of 256 keys
+    at head_dim 128 (a tile of pages x head_dim over 16384, which the
+    kernel once refused) is taken; head_dim % 4 != 0 or above 256 is not."""
+    def case(page, dh):
+        z = torch.zeros
+        return (z(2, 8, dh), z(3, page, 2, dh), z(3, page, 2, dh),
+                z(2, 2, dtype=torch.int32), z(2, dtype=torch.int32))
+    kernel_check(*case(256, 128), None)
+    kernel_check(*case(64, 256), None)
+    for dh in (30, 260):
+        with pytest.raises(ValueError, match="head_dim"):
+            kernel_check(*case(16, dh), None)
+
+
+def test_split_plan_from_shapes():
+    """The split is chosen from shapes and the SM count only. At the main
+    path's decode step (4 lanes, 8 kv heads of 4 query heads, 64 pages of
+    16 keys, an H100's 132 SMs) every 32-key tile gets its own block; more
+    lanes get longer chunks; the chunks always cover the table."""
+    assert _split_plan(4, 8, 4, 64 * 16, 132) == (4, 32, 32)
+    assert _split_plan(8, 8, 4, 128 * 16, 132) == (4, 64, 32)
+    hb, chunk, n_splits = _split_plan(24, 8, 4, 128 * 16, 132)
+    assert (hb, chunk % 32) == (4, 0) and chunk > 64
+    assert chunk * n_splits >= 128 * 16 > chunk * (n_splits - 1)
+    assert _split_plan(1, 1, 40, 100, 132)[0] == 14  # 40 heads: 14, 14, 12
+    assert _split_plan(2, 1, 1, 1, 132) == (1, 32, 1)

@@ -1,6 +1,7 @@
-"""``repro_torch`` and ``chip_smoke.py`` stand alone: no import of ``jax``
-or of the reference package ``repro``, by an AST scan of every module and
-by importing the serving entry point in a fresh interpreter."""
+"""``repro_torch``, ``chip_smoke.py`` and ``tools/kernel_ab.py`` stand
+alone: no import of ``jax`` or of the reference package ``repro``, by an
+AST scan of every module and by importing the serving entry point in a
+fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -13,7 +14,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "tools" / "kernel_ab.py", ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -31,7 +32,7 @@ def _imported_modules(path: Path):
 
 
 def test_port_modules_exist():
-    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-2]}
     assert {"repro_torch/serving/server.py", "repro_torch/core/agent.py",
             "repro_torch/kernels/paged_attention.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",

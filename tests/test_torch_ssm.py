@@ -31,8 +31,8 @@ from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models.model import Model as JaxModel  # noqa: E402
 from repro.models.params import split_params  # noqa: E402
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
-from repro_torch.kernels.ssd_scan import (ssd_intra,  # noqa: E402
-                                          ssd_intra_plain)
+from repro_torch.kernels.ssd_scan import (_block_plan,  # noqa: E402
+                                          ssd_intra, ssd_intra_plain)
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import (init_params,  # noqa: E402
@@ -132,6 +132,22 @@ def test_ssd_intra_wrapper_takes_plain_on_cpu():
     assert ssd_intra.launches == before  # no kernel on the CPU
     for g_, w_ in zip(got, ssd_intra_plain(*args)):
         assert torch.equal(g_, w_)
+
+
+def test_ssd_block_plan_from_shapes():
+    """How the kernel cuts the work, from shapes alone. At the main path's
+    prefill (4 rows x 3 chunks of 256, 48 heads of one group, an H100's
+    132 SMs) a y-block serves 8 heads and every query-tile level runs
+    before the state blocks; longer chunks take fewer heads a block (their
+    cs arrays fill shared memory), and small grids halve the head block."""
+    assert _block_plan(12, 256, 48, 1, 64, 128, 132) == (8, 4)
+    assert _block_plan(16, 256, 44, 1, 64, 128, 132) == (8, 4)  # 8 x 5 + 4
+    assert _block_plan(8, 1024, 24, 1, 64, 128, 132)[0] == 3
+    assert _block_plan(1, 4096, 48, 1, 64, 128, 132)[0] == 1
+    assert _block_plan(6, 256, 48, 1, 64, 128, 132)[0] == 4
+    assert _block_plan(1, 64, 2, 2, 64, 64, 132)[0] == 1
+    hb, top = _block_plan(12, 256, 48, 1, 64, 256, 132)
+    assert hb == 8 and 0 < top < 4  # a heavy state block goes earlier
 
 
 def test_ssd_intra_overflow_upper_triangle_is_zero():
