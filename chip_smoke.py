@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: the quickest proof that the port builds, starts and serves there.
+card: the quickest proof that the port builds, starts, serves and trains
+there.
 
     python3 chip_smoke.py          # from the repository root; needs one card
 
@@ -47,12 +48,31 @@ code is not 0 and no result line is printed:
    path's. Then prefill, decode, memory, a profile, and ``ssd_intra`` at
    the slice's own inputs beside its bound, its plain version and a
    yardstick of library calls.
-7. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+7. slice 4 — governed training, which runs none of the three kernels
+   (the loss runs the plain attention and SSD under autograd, as the
+   reference's does; their launch counts must stay 0 through the slice):
+   a 2-layer ``qwen3_4b`` at full widths steps twice on the card and on
+   the CPU from the same weights, with AdamW and with Adafactor, beside
+   a broken control (the card's lr 1.5x); full-width ``qwen3_4b`` (36
+   layers, fp32, Adafactor, remat full, 4 x 256 tokens a step from a
+   4096-token data vocabulary) trains to step 8 under a RuleVoter on
+   ``STANDARD_RULES``, with a checkpoint at step 4 and a final eval;
+   step 4 is restored and steps 5-8 replayed (they must give the first
+   run's losses; from cursor 5, the broken control, they must not);
+   then the executor-crash drill on the same env; then one full-width
+   ``mamba2_780m`` step (two SSD chunks of 256) must give a finite grad
+   norm, and the reference's ``where(exp)`` order a NaN one. Step time,
+   tokens/s, peak memory and checkpoint I/O are printed; the checkpoint
+   lives in a temporary directory removed afterwards.
+8. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
    and last the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -82,6 +102,19 @@ LOGIT_RTOL = 1e-3
 # what the prefill leaves in the cache (every layer's final SSM state, or
 # every layer's K and V): atol CACHE_TOL x max|plain| plus rtol CACHE_TOL
 CACHE_TOL = 1e-4
+# slice 4 (training). The data: the pipeline's dense vocab x vocab table
+# cannot be built at qwen3_4b's 151,936 (92 GB), so its tokens come from a
+# 4096-token vocabulary; the model, its padded head and the loss keep full
+# width.
+TRAIN_DATA = dict(vocab=4096, seq_len=256, global_batch=4)
+TRAIN_STEPS, TRAIN_CHUNK = 8, 4
+# card vs CPU (fp32 on both, sums in another order): losses and grad norms
+# to TRAIN_RTOL; each updated parameter leaf's distance from the CPU's
+# within UPDATE_RTOL of the CPU's update of that leaf
+TRAIN_RTOL, UPDATE_RTOL = 1e-4, 1e-3
+# the replayed steps 5-8 against the first run's (bitwise where the card
+# is deterministic)
+REPLAY_RTOL = 1e-5
 
 
 def _smi() -> str:
@@ -1156,8 +1189,12 @@ def main() -> None:
 
     # 6. slice 2: governed static serving at full mamba2_780m width
     ssd = slice_mamba2(smi)
+    torch.cuda.empty_cache()
 
-    # 7. result lines
+    # 7. slice 4: governed training at full qwen3_4b width
+    slice_training(smi)
+
+    # 8. result lines
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:45",
@@ -1346,6 +1383,361 @@ def _profile(label, calls, n_rep):
     for dev_us, key, count in sorted(rows, reverse=True)[:10]:
         print(f"    {dev_us / 1e3 / n_rep:9.3f} ms  "
               f"x{max(count // n_rep, 1):<5d} {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# slice 4: training
+# ---------------------------------------------------------------------------
+
+def _train_batches(data_kw, cursors, device):
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    pipe = TokenPipeline(DataConfig(**data_kw))
+    return [{k: torch.from_numpy(pipe.batch_at(c)[k]).to(device,
+                                                         torch.int64)
+             for k in ("tokens", "labels")} for c in cursors]
+
+
+def _train_steps(cfg, opt_cfg, params, device, batches):
+    """One step a batch through ``make_train_step`` (remat full) from a
+    copy of ``params`` on ``device``. Returns (losses, grad norms, the
+    final parameters)."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_map
+    from repro_torch.train.train_step import StepConfig, make_train_step
+    init_state, step = make_train_step(Model(cfg), opt_cfg,
+                                       StepConfig(remat="full"))
+    state = init_state(tree_map(lambda p: p.to(device, copy=True), params))
+    losses, gns = [], []
+    for b in batches:
+        state, m = step(state, {k: v.to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        gns.append(float(m["grad_norm"]))
+    return losses, gns, state["params"]
+
+
+def _train_errs(got, want, params0):
+    """Card run against CPU run: the largest relative difference of the
+    losses and of the grad norms, and of the leaves' updates
+    (|p_card - p_cpu| / |p_cpu - p0|, the largest over the leaves)."""
+    import torch
+    from repro_torch.models.params import tree_leaves
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    upd = max(float(torch.linalg.vector_norm(g.cpu() - w)
+                    / torch.linalg.vector_norm(w - p0))
+              for g, w, p0 in zip(tree_leaves(got[2]), tree_leaves(want[2]),
+                                  tree_leaves(params0)))
+    return {"loss": rel(got[0], want[0]), "grad_norm": rel(got[1], want[1]),
+            "update": upd}
+
+
+def train_card_vs_cpu(smi):
+    """qwen3_4b at full widths with 2 layers: two steps on the card and on
+    the CPU from the same seeded weights and batches, with AdamW and with
+    Adafactor, beside a broken control (the card's lr 1.5x)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.optimizer import OptimizerConfig
+    cfg = dataclasses.replace(get_config("qwen3_4b"), n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    data = dict(TRAIN_DATA, global_batch=2)
+    batches = _train_batches(data, (0, 1), "cpu")
+    print(f"  card vs CPU: {cfg.arch_id} widths, {cfg.n_layers} layers, "
+          f"{sum(p.numel() for p in _leaves(params))} params, batches "
+          f"(2, {data['seq_len']}) at cursors 0 and 1, remat full")
+    for name in ("adamw", "adafactor"):
+        opt = OptimizerConfig(name=name, lr=1e-3, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+        t0 = time.perf_counter()
+        cpu = _train_steps(cfg, opt, params, "cpu", batches)
+        cpu_s = time.perf_counter() - t0
+        card = _train_steps(cfg, opt, params, "cuda", batches)
+        errs = _train_errs(card, cpu, params)
+        broken = _train_errs(_train_steps(
+            cfg, dataclasses.replace(opt, lr=1.5 * opt.lr), params, "cuda",
+            batches), cpu, params)
+        print(f"    {name}: losses card {card[0]} cpu {cpu[0]}, grad norms "
+              f"card {card[1]} cpu {cpu[1]}; max rel diff loss "
+              f"{errs['loss']:.3e} grad norm {errs['grad_norm']:.3e} "
+              f"update {errs['update']:.3e} (limits {TRAIN_RTOL}, "
+              f"{TRAIN_RTOL}, {UPDATE_RTOL}); broken control (card lr "
+              f"1.5x): update {broken['update']:.3e}; CPU run "
+              f"{cpu_s:.2f} s | on {smi}")
+        if not all(map(math.isfinite, card[0] + card[1])):
+            raise AssertionError(f"{name}: non-finite loss or grad norm")
+        if errs["loss"] > TRAIN_RTOL or errs["grad_norm"] > TRAIN_RTOL \
+                or errs["update"] > UPDATE_RTOL:
+            raise AssertionError(f"{name}: card and CPU steps differ")
+        if broken["update"] <= UPDATE_RTOL:
+            raise AssertionError(f"{name}: the broken control met the "
+                                 f"update limit")
+
+
+def _timed(fn, log, key):
+    """``fn`` that adds its wall seconds (card synchronised) to
+    ``log[key]``."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.setdefault(key, []).append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def _governed_agent(env):
+    """The training agent over ``env`` with a RuleVoter on
+    STANDARD_RULES, a checkpoint every chunk."""
+    from repro_torch.core import STANDARD_RULES, MemoryBus, RuleVoter
+    from repro_torch.core.acl import BusClient
+    from repro_torch.train.trainer import build_training_agent
+    bus = MemoryBus()
+    agent = build_training_agent(env, total_steps=TRAIN_STEPS, bus=bus,
+                                 steps_per_intention=TRAIN_CHUNK,
+                                 ckpt_every=TRAIN_CHUNK)
+    agent.add_voter(RuleVoter(BusClient(bus, "rv", "voter"),
+                              rules=STANDARD_RULES), from_tail=False)
+    agent.set_policy("decider", {"mode": "first_voter"})
+    agent.set_policy("voter:rule", {"lr_bounds": (0.0, 0.1)})
+    return agent, bus
+
+
+def train_governed(smi, root):
+    """Full-width qwen3_4b (fp32, Adafactor, remat full): the governed run
+    to step 8 with a checkpoint at step 4 and a final eval; restore step 4
+    and replay steps 5-8 (and the broken control from cursor 5); then the
+    executor-crash drill on the same env."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import (Executor, MemoryBus, committed_unexecuted,
+                                  summarize_bus, trace_intents)
+    from repro_torch.core.acl import BusClient
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import StepConfig
+    from repro_torch.train.trainer import (TRAIN_HANDLERS, InjectedCrash,
+                                           build_env, build_training_agent,
+                                           h_restore_checkpoint,
+                                           h_train_chunk)
+    cfg = get_config("qwen3_4b")
+    opt = OptimizerConfig(name="adafactor", lr=1e-3, warmup_steps=2,
+                          total_steps=TRAIN_STEPS)
+    env = build_env(cfg, opt, StepConfig(remat="full"),
+                    DataConfig(**TRAIN_DATA), root, device="cuda")
+    log = {}
+    env.train_step = _timed(env.train_step, log, "step")
+    env.ckpts.save = _timed(env.ckpts.save, log, "save")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    env.ensure_initialized(SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(env.state["params"]))
+    tokens = TRAIN_DATA["global_batch"] * TRAIN_DATA["seq_len"]
+    print(f"  governed run: {cfg.arch_id} {cfg.n_layers} layers, "
+          f"{n_params} fp32 params from torch.Generator seed {SEED} in "
+          f"{time.perf_counter() - t0:.2f} s; Adafactor lr {opt.lr}, remat "
+          f"full; data {TRAIN_DATA} ({tokens} tokens a step); "
+          f"{TRAIN_STEPS} steps in chunks of {TRAIN_CHUNK}, checkpoint "
+          f"every {TRAIN_CHUNK}; free disk for checkpoints "
+          f"{shutil.disk_usage(root).free} B")
+    agent, bus = _governed_agent(env)
+    agent.send_mail(f"train {cfg.arch_id} to {TRAIN_STEPS} steps")
+    t0 = time.perf_counter()
+    agent.run_until_idle(max_rounds=100000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    trace = trace_intents(bus.read(0))
+    kinds = [t.kind for t in trace]
+    summ = summarize_bus(bus)
+    chunks = [t.result["value"] for t in trace if t.kind == "train_chunk"]
+    losses = [x for c in chunks for x in c["losses"]]
+    gns = [c["grad_norm"] for c in chunks]
+    evals = [t.result["value"]["eval_loss"] for t in trace
+             if t.kind == "eval"]
+    print(f"    intents {kinds} committed {summ['n_committed']} aborted "
+          f"{summ['n_aborted']}; env.step {env.step} cursor "
+          f"{env.data_cursor}; losses {losses}; chunk grad norms {gns}; "
+          f"eval loss {evals}; wall {wall:.2f} s | on {smi}")
+    if kinds != ["train_chunk", "save_checkpoint", "train_chunk", "eval"] \
+            or summ["n_aborted"] or env.step != TRAIN_STEPS \
+            or not all(map(math.isfinite, losses + gns + evals)):
+        raise AssertionError("the governed training run did not reach its "
+                             "target cleanly")
+    step_s = log["step"][1:TRAIN_STEPS]
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    print(f"    step time {step_ms:.2f} ms (mean of steps 2-{TRAIN_STEPS}; "
+          f"step 1 {1e3 * log['step'][0]:.2f} ms) = "
+          f"{tokens * 1e3 / step_ms:.2f} training tokens/s | peak memory "
+          f"{peak} B | on {smi}")
+
+    ck = TRAIN_CHUNK
+    npz = os.path.join(env.ckpts._dir(ck), "state.npz")
+    t0 = time.perf_counter()
+    ok = env.ckpts.verify(ck)
+    verify_s = time.perf_counter() - t0
+    if env.ckpts.list_steps() != [ck] or not ok:
+        raise AssertionError(f"the step-{ck} checkpoint does not verify")
+
+    def replay(start):
+        t0 = time.perf_counter()
+        r = _timed(h_restore_checkpoint, log, "restore")({"step": ck}, env)
+        if (r["step"], r["data_cursor"]) != (ck, ck):
+            raise AssertionError(f"restore gave {r}")
+        return h_train_chunk({"steps": TRAIN_STEPS - ck, "data_start": start},
+                             env)["losses"], time.perf_counter() - t0
+
+    first = losses[ck:]
+    again, again_s = replay(ck)
+    broken, _ = replay(ck + 1)
+    err = max(abs(a - b) / abs(b) for a, b in zip(again, first))
+    berr = max(abs(a - b) / abs(b) for a, b in zip(broken, first))
+    print(f"    checkpoint at step {ck}: {os.path.getsize(npz)} B; save "
+          f"{log['save'][0]:.2f} s, verify {verify_s:.2f} s, restore "
+          f"{log['restore'][0]:.2f} s (verify included) | on {smi}")
+    print(f"    restore + replay of steps {ck + 1}-{TRAIN_STEPS} from cursor "
+          f"{ck}: losses {again}, max rel diff from the first run "
+          f"{err:.3e} (limit {REPLAY_RTOL}; bitwise {again == first}); "
+          f"restore + replay {again_s:.2f} s; broken control from cursor "
+          f"{ck + 1}: {berr:.3e} | on {smi}")
+    if err > REPLAY_RTOL:
+        raise AssertionError("the replay after restore differs")
+    if berr <= REPLAY_RTOL:
+        raise AssertionError("the broken replay control met the limit")
+
+    # where a step's device time goes (torch.profiler, CUPTI)
+    batch = env.batch(env.data_cursor)
+
+    def one_step():
+        env.state = env.train_step(env.state, batch)[0]
+    _profile(f"one training step ({TRAIN_DATA['global_batch']}, "
+             f"{TRAIN_DATA['seq_len']})", [one_step], 1)
+
+    # the crash drill of tests/test_recovery.py on the same env: fresh
+    # weights, a new bus, no voter
+    env.state, env.step, env.data_cursor = None, 0, 0
+    torch.cuda.empty_cache()
+    bus = MemoryBus()
+    agent = build_training_agent(env, total_steps=TRAIN_STEPS, bus=bus,
+                                 steps_per_intention=TRAIN_CHUNK,
+                                 ckpt_every=100)
+    env.crash_after_steps = 6  # dies inside the 2nd train_chunk
+    agent.send_mail("train")
+    try:
+        agent.run_until_idle(max_rounds=100000)
+        raise AssertionError("the injected crash did not happen")
+    except InjectedCrash:
+        pass
+    pend = committed_unexecuted(bus)
+    if [p["kind"] for p in pend] != ["train_chunk"] or env.step != 6:
+        raise AssertionError(f"after the crash: pending {pend}, step "
+                             f"{env.step}")
+    agent.executor = Executor(BusClient(bus, "executor-2", "executor"),
+                              env=env, handlers=TRAIN_HANDLERS,
+                              announce_reboot=True)
+    agent.run_until_idle(max_rounds=100000)
+    trace = trace_intents(bus.read(0))
+    probes = [t.decision for t in trace if t.kind == "probe_state"]
+    starts = [t.args["data_start"] for t in trace
+              if t.kind == "train_chunk" and t.result and t.result["ok"]]
+    drill = [x for t in trace if t.kind == "train_chunk" and t.result
+             and t.result["ok"] for x in t.result["value"]["losses"]]
+    print(f"    crash drill: intents {[t.kind for t in trace]}; probes "
+          f"{probes}; data starts {starts}; env.step {env.step}; first "
+          f"chunk's losses equal the governed run's: "
+          f"{drill[:ck] == losses[:ck]}")
+    if probes != ["commit"] or env.step != TRAIN_STEPS \
+            or any(b <= a for a, b in zip(starts, starts[1:])):
+        raise AssertionError("the crash drill did not roll forward once")
+
+
+def _ssd_intra_reference_order(x, dt, a, b, c):
+    """Broken control only: ``ssd_intra_plain`` with the reference's
+    order, ``where(tri, exp(seg), 0)``, whose backward is NaN where the
+    upper triangle's exp overflows."""
+    import torch
+    rep = x.shape[3] // b.shape[3]
+    bh, ch = (t.repeat_interleave(rep, dim=3) for t in (b, c))
+    q = x.shape[2]
+    cs = torch.cumsum(dt * a, dim=2)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    cb = torch.einsum("bcthn,bcuhn->bctuh", ch, bh)
+    y = torch.einsum("bctuh,bcuh,bcuhp->bcthp", cb * L, dt, x)
+    d_end = torch.exp(cs[:, :, -1:, :] - cs)
+    states = torch.einsum("bcuh,bcuh,bcuhn,bcuhp->bchpn", d_end, dt, bh, x)
+    return y, states, torch.exp(cs[:, :, -1, :])
+
+
+def train_mamba2(smi):
+    """One Adafactor step of full-width mamba2_780m over (2, 512) tokens
+    (two SSD chunks of 256): finite loss and grad norm; the broken control
+    (the reference's mask order) gives a NaN grad norm."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.optimizer import OptimizerConfig
+    cfg = get_config("mamba2_780m")
+    opt = OptimizerConfig(name="adafactor", lr=1e-3, warmup_steps=1)
+    batch = _train_batches(dict(TRAIN_DATA, seq_len=512, global_batch=2),
+                           (0,), "cuda")
+
+    def one_step():
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            SEED), "cuda")
+        t0 = time.perf_counter()
+        out = _train_steps(cfg, opt, params, "cuda", batch)
+        return out[0][0], out[1][0], time.perf_counter() - t0
+
+    loss, gn, secs = one_step()
+    plain = ssm_lib.ssd_intra_plain
+    ssm_lib.ssd_intra_plain = _ssd_intra_reference_order
+    try:
+        bloss, bgn, _ = one_step()
+    finally:
+        ssm_lib.ssd_intra_plain = plain
+    print(f"  {cfg.arch_id} ({cfg.n_layers} layers, chunk {cfg.ssm.chunk})"
+          f": one Adafactor step over (2, 512): loss {loss} grad norm {gn} "
+          f"in {secs:.2f} s (first step, with warm-up); broken control "
+          f"(where(exp) order): loss {bloss} grad norm {bgn} | on {smi}")
+    if not (math.isfinite(loss) and math.isfinite(gn)):
+        raise AssertionError("the mamba2 step's loss or gradient is not "
+                             "finite")
+    if not math.isnan(bgn):
+        raise AssertionError("the where(exp) control did not give a NaN "
+                             "gradient")
+
+
+def slice_training(smi):
+    """Phase 7: governed training of full-width qwen3_4b, its checkpoint,
+    restore, replay and crash drill, the card against the CPU, and one
+    full-width mamba2_780m step; no serving kernel may launch."""
+    import tempfile
+    import torch
+    print(f"[slice 4] training (fp32, TF32 off) on {smi}")
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    train_card_vs_cpu(smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as root:
+        train_governed(smi, root)
+    torch.cuda.empty_cache()
+    train_mamba2(smi)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"  kernel launches through the training phase: {launches} "
+          f"(the loss runs the plain paths) | slice 4 wall "
+          f"{time.perf_counter() - t0:.2f} s | on {smi}")
+    if any(launches.values()):
+        raise AssertionError("a serving kernel launched during training")
 
 
 def _leaves(tree):

@@ -10,8 +10,11 @@ from .decider import Decider
 from .driver import Driver, Planner, ScriptPlanner
 from .entries import Entry, Payload, PayloadType
 from .executor import Executor
+from .introspect import (BusObserver, TRACE_TYPES, health_check,
+                         summarize_bus, trace_intents)
 from .lifecycle import CheckpointCoordinator, Recoverable
 from .policy import DeciderPolicy, PolicyState
+from .recovery import RecoveryPlanner, committed_unexecuted
 from .snapshot import DirSnapshotStore, MemorySnapshotStore, SnapshotStore
 from .voter import (RuleVoter, StatVoter, Voter, VoteDecision,
                     STANDARD_RULES)
@@ -20,8 +23,10 @@ __all__ = [
     "entries", "AclError", "BusClient", "Permissions", "ROLES",
     "LogActAgent", "AgentBus", "MemoryBus", "TrimmedError", "make_bus",
     "Decider", "Driver", "Planner", "ScriptPlanner", "Entry", "Payload",
-    "PayloadType", "Executor", "CheckpointCoordinator", "Recoverable",
-    "DeciderPolicy", "PolicyState", "DirSnapshotStore",
+    "PayloadType", "Executor", "health_check", "summarize_bus",
+    "trace_intents", "BusObserver", "TRACE_TYPES", "CheckpointCoordinator",
+    "Recoverable", "DeciderPolicy", "PolicyState", "RecoveryPlanner",
+    "committed_unexecuted", "DirSnapshotStore",
     "MemorySnapshotStore", "SnapshotStore", "RuleVoter", "StatVoter",
     "Voter", "VoteDecision", "STANDARD_RULES",
 ]

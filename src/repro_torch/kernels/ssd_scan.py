@@ -145,9 +145,13 @@ def ssd_intra_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version (the reference's ``ref.ssd_intra_ref`` and the
     intra-chunk part of ``ssd_chunked``): B and C repeated over the heads,
-    the full (Q, Q) segment-decay matrix with its upper triangle set to 0
-    by ``where`` (the ``exp`` computed there may be ``inf``; it is never
-    selected). Same contract as ``ssd_intra``."""
+    the full (Q, Q) segment-decay matrix with its upper triangle set to 0.
+    The upper triangle's segment sums are masked to ``-inf`` before the
+    ``exp``, where the reference masks the ``exp`` after taking it: the
+    forward is the same to the bit, and the gradient stays finite where
+    ``exp`` of an unmasked upper-triangle sum (up to ~177 for a chunk of
+    256 at ``A = -1``) would overflow to ``inf`` and its backward give
+    0 * inf = NaN. Same contract as ``ssd_intra``."""
     h = x.shape[3]
     rep = h // b.shape[3]
     x, dt, a = x.float(), dt.float(), a.float()
@@ -157,7 +161,7 @@ def ssd_intra_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cs = torch.cumsum(dt * a, dim=2)                  # (B,NC,Q,H)
     seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]  # (B,NC,Qt,Qu,H)
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(tri[None, None, :, :, None], torch.exp(seg), 0.0)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], seg, -torch.inf))
     cb = torch.einsum("bcthn,bcuhn->bctuh", ch, bh)
     y = torch.einsum("bctuh,bcuh,bcuhp->bcthp", cb * L, dt, x)
     d_end = torch.exp(cs[:, :, -1:, :] - cs)

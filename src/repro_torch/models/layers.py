@@ -170,6 +170,19 @@ def attn_out(o: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def self_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
+                         *, positions: torch.Tensor, window: Optional[int],
+                         kv_chunk: int = 1024) -> torch.Tensor:
+    """Training self-attention over the full sequence (causal), on the
+    plain attention path (the loss runs under autograd; the flash kernel
+    is forward-only)."""
+    q, k, v = attn_project_qkv(x, p, cfg, positions)
+    o = attention(q, k, v, pos_q=positions, pos_k=positions, causal=True,
+                  window=window, softcap=cfg.attn_softcap,
+                  scale=cfg.attn_logit_scale, kv_chunk=kv_chunk)
+    return attn_out(o, p)
+
+
 def mlp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg
               ) -> torch.Tensor:
     """Gated (3-matrix) or plain MLP; gelu is the tanh approximation."""

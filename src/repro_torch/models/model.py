@@ -1,32 +1,39 @@
 """The port of ``models/model.py``: the padded vocab, the token embedding
-and the (tied) output head, which the paged serving engine uses, and the
+and the (tied) output head, which the paged serving engine uses; the
 static generation path (``init_cache`` / ``prefill`` / ``decode_step``)
 for the dense family (qwen3) and the ssm family (mamba2), which the static
-serving discipline uses. The parameter trees are
+serving discipline uses; and the training forward and loss (``loss_fn``)
+for the same two families. The parameter trees are
 ``models.params.init_params``.
 
-The layer stack is a Python loop over the stacked ``(L, ...)`` layer tree
-where the reference runs ``lax.scan``; the caches come back stacked on L
-as there. ``use_kernel`` picks the hand-written kernel of each family's
-prefill: the flash-attention kernel for every dense layer's attention, the
-SSD intra-chunk kernel for every mamba2 layer. The loss and the other
-families are not ported yet: their ``prefill`` / ``decode_step`` raise.
+The layer stack is a Python loop over the layers of the stacked
+``(L, ...)`` layer tree (each leaf ``unbind`` once) where the reference
+runs ``lax.scan``; the caches come back stacked on L as there.
+``use_kernel`` picks the hand-written kernel of each family's prefill: the
+flash-attention kernel for every dense layer's attention, the SSD
+intra-chunk kernel for every mamba2 layer. The loss runs the plain paths
+under autograd whatever ``use_kernel`` says: neither kernel has a
+backward. The other families are not ported yet: their entry points raise.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_mha
 from . import ssm as ssm_lib
 from .layers import (attention, attn_out, attn_project_qkv,
-                     decode_attention_block, mlp_block, rmsnorm)
-from .params import layer_slice, padded_vocab
+                     decode_attention_block, mlp_block, rmsnorm,
+                     self_attention_block)
+from .params import padded_vocab, unstack_layers
 
 INF_WINDOW = 1 << 30  # "no window" sentinel for per-layer window arrays
 
@@ -72,15 +79,17 @@ class Model:
         if cfg.final_softcap is not None:
             logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
         if self.vocab_pad != cfg.vocab:  # mask pad region
-            logits[..., cfg.vocab:] = -1e30
+            pad = torch.arange(self.vocab_pad, device=logits.device) \
+                >= cfg.vocab
+            logits = logits.masked_fill(pad, -1e30)
         return logits
 
     def _static_family(self, what: str) -> None:
         if self.cfg.family not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"Model.{what}: family {self.cfg.family!r} is not ported "
-                f"yet (the port's static path serves the dense and ssm "
-                f"families)")
+                f"yet (the port's static path and loss serve the dense and "
+                f"ssm families)")
 
     def _window_array(self) -> List[int]:
         """Each layer's attention window; INF_WINDOW where there is none,
@@ -140,8 +149,8 @@ class Model:
         positions = torch.arange(S, device=x.device).expand(B, S)
         cl = self.cache_len(S)
         kvs = []
-        for i, win in enumerate(self._window_array()):
-            lp = layer_slice(params["layers"], i)
+        for lp, win in zip(unstack_layers(params["layers"]),
+                           self._window_array()):
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
             q, k, v = attn_project_qkv(h, lp["attn"], cfg, positions)
             if self.use_kernel:
@@ -169,9 +178,10 @@ class Model:
         (x after the final norm, the new K/V cache)."""
         cfg = self.cfg
         new = []
-        for i, win in enumerate(self._window_array()):
-            lp = layer_slice(params["layers"], i)
-            lc = layer_slice(cache["attn"], i)
+        for lp, lc, win in zip(
+                unstack_layers(params["layers"]),
+                unstack_layers(cache["attn"]),
+                self._window_array()):
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
             h, new_c = decode_attention_block(h, lp["attn"], cfg, cache=lc,
                                               cur=cur, window=win)
@@ -183,25 +193,82 @@ class Model:
         return x, {n: torch.stack([c[n] for c in new])
                    for n in ("k", "v", "pos")}
 
-    def _ssm_stack(self, params, x: torch.Tensor, cache=None):
+    def _decoder_stack(self, params, x: torch.Tensor,
+                       positions: torch.Tensor, *, remat: str,
+                       kv_chunk: int):
+        """The training forward of the dense layers and the final norm over
+        x (B, S, D), on the plain attention path. Returns (x, the moe aux
+        losses: zeros, the port has no moe yet)."""
+        cfg = self.cfg
+
+        def body(x, lp, win):
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            x = x + self_attention_block(h, lp["attn"], cfg,
+                                         positions=positions, window=win,
+                                         kv_chunk=kv_chunk)
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            return x + mlp_block(h, lp["mlp"], cfg)
+
+        body = _maybe_remat(body, remat)
+        for lp, win in zip(unstack_layers(params["layers"]),
+                           self._window_array()):
+            x = body(x, lp, win)
+        x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, {"aux_lb": zero, "aux_z": zero}
+
+    def _ssm_stack(self, params, x: torch.Tensor, cache=None, *,
+                   remat: str = "none", use_kernel: bool = None):
         """The mamba2 layers and the final norm over x (B, S, D): a prefill
         when ``cache`` is None, else one decode step from ``cache``.
+        ``use_kernel`` (default: the model's) picks the SSD kernel or its
+        plain version; ``remat`` recomputes each layer in the backward.
         Returns (x, the new per-layer states stacked on L)."""
         cfg = self.cfg
-        states, convs = [], []
-        for i in range(cfg.n_layers):
-            lp = layer_slice(params["layers"], i)
-            kw = {} if cache is None else dict(
-                ssm_state=cache["ssm"]["state"][i],
-                conv_state=cache["ssm"]["conv"][i], decode=True)
+        if use_kernel is None:
+            use_kernel = self.use_kernel
+
+        def body(x, lp, state, conv):
+            kw = {} if state is None else dict(
+                ssm_state=state, conv_state=conv, decode=True)
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
-            h, (s_new, c_new) = ssm_lib.mamba2_block(
-                h, lp["mamba"], cfg, use_kernel=self.use_kernel, **kw)
-            x = x + h
+            h, new = ssm_lib.mamba2_block(h, lp["mamba"], cfg,
+                                          use_kernel=use_kernel, **kw)
+            return x + h, new
+
+        body = _maybe_remat(body, remat)
+        old = ([(None, None)] * cfg.n_layers if cache is None else
+               zip(cache["ssm"]["state"].unbind(0),
+                   cache["ssm"]["conv"].unbind(0)))
+        states, convs = [], []
+        for lp, (state, conv) in zip(unstack_layers(params["layers"]), old):
+            x, (s_new, c_new) = body(x, lp, state, conv)
             states.append(s_new)
             convs.append(c_new)
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         return x, {"state": torch.stack(states), "conv": torch.stack(convs)}
+
+    def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
+                remat: str = "none", kv_chunk: int = 1024):
+        """Mean next-token cross-entropy of ``batch`` (``tokens`` and
+        ``labels``, (B, S); labels below 0 are masked). Returns (loss,
+        {"loss": loss}). ``remat`` is ``none``, ``dots`` (matmul outputs
+        saved, the rest recomputed) or ``full`` (each layer recomputed in
+        the backward)."""
+        self._static_family("loss_fn")
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        x = self._embed(params, tokens)
+        if cfg.family == "dense":
+            positions = torch.arange(x.shape[1], device=x.device).expand(
+                x.shape[:2])
+            x, _ = self._decoder_stack(params, x, positions, remat=remat,
+                                       kv_chunk=kv_chunk)
+        else:
+            x, _ = self._ssm_stack(params, x, remat=remat,
+                                   use_kernel=False)
+        loss = softmax_xent(self._logits(params, x), labels)
+        return loss, {"loss": loss}
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 1024, extra_cache: int = 0):
@@ -239,6 +306,41 @@ class Model:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+# the matmuls that ``remat="dots"`` keeps (the reference's
+# ``checkpoint_dots``): einsum reaches ATen as one of these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(body, remat: str):
+    """The reference's ``_maybe_remat`` on ``torch.utils.checkpoint``."""
+    if remat == "none":
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        save_dots = functools.partial(create_selective_checkpoint_contexts,
+                                      _dots_policy)
+        return functools.partial(checkpoint, body, use_reentrant=False,
+                                 context_fn=save_dots)
+    raise ValueError(f"remat must be none, dots or full; got {remat!r}")
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
+                 ) -> torch.Tensor:
+    """Mean cross-entropy; labels < 0 are masked out."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+
 
 def _collect_kv(k, v, cl, positions, dtype) -> Dict[str, torch.Tensor]:
     """Prefill-path cache slice of one layer: the last ``cl`` positions."""

@@ -6,7 +6,10 @@ value tree of the reference's ``split_params`` (``wq (L, D, H, Dh)``,
 transposed layouts, so one set of values runs on both sides.
 
 * ``params_from_numpy`` carries a tree of numpy arrays (for example the
-  reference's parameters, converted leaf by leaf) into torch losslessly.
+  reference's parameters, converted leaf by leaf) into torch losslessly,
+  and ``params_to_numpy`` carries a tree of tensors back.
+* ``tree_map`` / ``tree_leaves`` walk such trees (and the optimizers'
+  state trees) in the order of JAX's dict flattening: sorted keys.
 * ``init_params`` is the port's own initializer, for the dense and the
   ssm families. It follows the reference's rule: normal times
   ``1/sqrt(shape[-2])`` (so ``wq``'s scale comes from ``H``, not ``D``),
@@ -18,7 +21,7 @@ transposed layouts, so one set of values runs on both sides.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +40,31 @@ def params_from_numpy(tree: Any, device) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """Nested dict of tensors -> same dict of numpy arrays on the host
+    (dtype kept, values bit-identical): the inverse of
+    ``params_from_numpy``."""
+    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` on each leaf of ``tree`` and the matching subtrees of
+    ``rest`` (a subtree of ``rest`` may be a dict where ``tree`` has a
+    leaf, as Adafactor's ``{"vr", "vc"}`` state beside a parameter)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict, keys sorted at every level (JAX's
+    flattening order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
 
 
 def _normal(shape: Sequence[int], g: torch.Generator, device,
@@ -115,8 +143,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return p
 
 
-def layer_slice(tree: Any, i: int) -> Any:
-    """Views of layer ``i`` of a stacked ``(L, ...)`` layer tree."""
-    if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+def unstack_layers(tree: Any) -> List[Any]:
+    """The layer trees of a stacked ``(L, ...)`` tree (views), each leaf
+    ``unbind`` once. Under autograd the L gradients of a leaf then come
+    back through one stack, where indexing layer ``i`` of each leaf sends
+    every layer a zeroed gradient the size of the whole leaf."""
+    per_leaf = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda parts: parts[i], per_leaf)
+            for i in range(len(tree_leaves(per_leaf)[0]))]

@@ -42,7 +42,7 @@ from ..kernels.paged_attention import paged_attention, paged_attention_plain
 from ..models.layers import (attention, attn_out, attn_project_qkv,
                              mlp_block, rmsnorm)
 from ..models.model import Model
-from ..models.params import init_params, layer_slice
+from ..models.params import init_params, unstack_layers
 from .kv_pool import KVPool
 
 PAD_POS = 1 << 28  # pad-token position: causally invisible to real queries
@@ -81,8 +81,7 @@ class PagedEngine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = init_params(cfg, gen, self.device)
         self.params = params
-        self._layers = [layer_slice(params["layers"], i)
-                        for i in range(cfg.n_layers)]
+        self._layers = unstack_layers(params["layers"])
         self.max_batch = max_batch
         self.use_kernel = use_kernel
         self.pool = KVPool(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,

@@ -1,9 +1,10 @@
 """Tests of the port that need the card: each CUDA kernel (paged
 attention, the SSD intra-chunk terms, flash attention) against its plain
-version, and the tokens of the paths they carry (the paged engine, static
-mamba2 and qwen3 serving) with the kernel against the plain path, on the
-card. Marked ``cuda``; they skip where there is no card. Run them on a
-machine with one:
+version, the tokens of the paths they carry (the paged engine, static
+mamba2 and qwen3 serving) with the kernel against the plain path, and
+the train step on the card against the same step on the CPU, whose loss
+and backward launch no kernel. Marked ``cuda``; they skip where there is
+no card. Run them on a machine with one:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
@@ -18,7 +19,12 @@ reference's tolerance for its SSD kernel against the oracle
 scan, the plain one another order. For flash attention: atol = rtol =
 2e-5 on unit-normal inputs, the reference's tolerance for its flash kernel
 against ``mha_ref`` (``tests/test_kernels.py:64-71``); an online softmax
-over key tiles against one softmax.
+over key tiles against one softmax. For the train step, card vs CPU:
+losses and grad norms rtol 1e-5 (fp32 on both, sums in another order);
+each parameter leaf's distance from the CPU's within 1e-3 of the CPU's
+update of that leaf (``chip_smoke.py``'s ``UPDATE_RTOL``: AdamW's first
+update is near sign(g), so an entry whose gradient is near ``eps`` moves
+by a sizeable part of lr on ulp-level gradient differences).
 """
 import pytest
 
@@ -35,9 +41,13 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     _block_plan, ssd_intra, ssd_intra_plain)
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.models.params import (init_params,  # noqa: E402
+                                       tree_leaves, tree_map)
+from repro_torch.optim.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.serving import server  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
+from repro_torch.train.train_step import (StepConfig,  # noqa: E402
+                                          make_train_step)
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -343,3 +353,62 @@ def test_dense_static_serving_tokens_kernel_vs_plain(cuda):
         outs.append(server.h_serve_batch(dict(args), env))
         assert flash_mha.launches == (cfg.n_layers if use_kernel else 0)
     assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
+
+
+def _train_batch(cfg, device, seed=7):
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, cfg.vocab, size=(4, 33))
+    labels = tok[:, 1:].copy()
+    labels[:, :3] = -1
+    return {"tokens": torch.as_tensor(tok[:, :-1], device=device),
+            "labels": torch.as_tensor(labels, device=device)}
+
+
+@pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
+@pytest.mark.parametrize("arch", ["qwen3_4b", "mamba2_780m"])
+def test_train_step_card_matches_cpu(cuda, arch, opt_name):
+    cfg = smoke(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        init_state, step = make_train_step(
+            Model(cfg), OptimizerConfig(name=opt_name, lr=1e-3,
+                                        warmup_steps=1),
+            StepConfig(remat="full", microbatches=2))
+        state = init_state(tree_map(lambda p: p.to(dev, copy=True), params))
+        state, m = step(state, _train_batch(cfg, dev))
+        out[str(dev)] = (m, state["params"])
+    (mc, pc), (mg, pg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(mg[k]), float(mc[k]), rtol=1e-5,
+                                   atol=0, equal_nan=False)
+    for a, b, p0 in zip(tree_leaves(pg), tree_leaves(pc),
+                        tree_leaves(params)):
+        assert torch.isfinite(a).all()
+        err = torch.linalg.vector_norm(a.cpu() - b) \
+            / torch.linalg.vector_norm(b - p0)
+        assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("arch", ["qwen3_4b", "mamba2_780m"])
+def test_loss_and_backward_launch_no_kernel(cuda, arch):
+    """The loss runs the plain attention and SSD under autograd even where
+    the model asks for the kernels (neither has a backward)."""
+    cfg = smoke(get_config(arch))
+    model = Model(cfg, use_kernel=True)
+    params = tree_map(torch.Tensor.requires_grad_, init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda))
+    for fn in (paged_attention, ssd_intra, flash_mha):
+        fn.launches = 0
+    loss, _ = model.loss_fn(params, _train_batch(cfg, cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, ssd_intra.launches,
+            flash_mha.launches) == (0, 0, 0)
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(p.grad).all() for p in tree_leaves(params))
+    # the prefill of the same model does launch its kernel
+    with torch.no_grad():
+        model.prefill(params, {"tokens": _train_batch(cfg, cuda)["tokens"]})
+    assert (ssd_intra if arch == "mamba2_780m" else flash_mha).launches \
+        == cfg.n_layers

@@ -39,8 +39,8 @@ from repro_torch.kernels.flash_attention import flash_mha  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models.model import INF_WINDOW, Model  # noqa: E402
-from repro_torch.models.params import (layer_slice,  # noqa: E402
-                                       params_from_numpy)
+from repro_torch.models.params import (params_from_numpy,  # noqa: E402
+                                       unstack_layers)
 from repro_torch.serving import server  # noqa: E402
 
 torch.set_num_threads(1)
@@ -130,7 +130,8 @@ def test_decode_attention_block_matches_reference(qwen3, cur, window):
         cache={n: jnp.asarray(a) for n, a in cache.items()},
         cur=jnp.int32(cur), window=window)
     ty, tc = layers.decode_attention_block(
-        torch.from_numpy(x), layer_slice(tparams["layers"]["attn"], 0), tcfg,
+        torch.from_numpy(x), unstack_layers(tparams["layers"]["attn"])[0],
+        tcfg,
         cache={n: torch.from_numpy(a) for n, a in cache.items()}, cur=cur,
         window=window)
     _close(ty, jy, **LAYER_TOL)

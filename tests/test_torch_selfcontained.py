@@ -1,7 +1,7 @@
 """``repro_torch``, ``chip_smoke.py`` and ``tools/kernel_ab.py`` stand
 alone: no import of ``jax`` or of the reference package ``repro``, by an
-AST scan of every module and by importing the serving entry point in a
-fresh interpreter."""
+AST scan of every module and by importing the serving and the training
+entry points in a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -37,7 +37,13 @@ def test_port_modules_exist():
             "repro_torch/kernels/paged_attention.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
             "repro_torch/configs/mamba2_780m.py",
-            "repro_torch/kernels/flash_attention.py"} <= names
+            "repro_torch/kernels/flash_attention.py",
+            "repro_torch/data/pipeline.py", "repro_torch/optim/optimizer.py",
+            "repro_torch/optim/compression.py",
+            "repro_torch/train/train_step.py",
+            "repro_torch/train/checkpoint.py",
+            "repro_torch/train/trainer.py", "repro_torch/core/introspect.py",
+            "repro_torch/core/recovery.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}
@@ -52,8 +58,8 @@ def test_no_import_of_jax_or_repro(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
-def test_serving_import_pulls_in_neither():
-    code = ("import sys, repro_torch.serving.server\n"
+def _import_pulls_in_neither(module):
+    code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -61,3 +67,11 @@ def test_serving_import_pulls_in_neither():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_serving_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.serving.server")
+
+
+def test_training_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.train.trainer")
