@@ -64,8 +64,30 @@ code is not 0 and no result line is printed:
    norm, and the reference's ``where(exp)`` order a NaN one. Step time,
    tokens/s, peak memory and checkpoint I/O are printed; the checkpoint
    lives in a temporary directory removed afterwards.
-8. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
-   and last the ``{"ok": true, "device": ...}`` line.
+8. slice 5 — three more configs at full width, one after another, each
+   one's weights freed before the next and its peak memory printed, each
+   with its ``wq``/``wk`` scaled so that its attention scores have std
+   SCORE_STD: ``gemma2_9b`` (42 layers, local/global windows, softcaps)
+   through the governed static agent with a 4,500-token prompt beside one
+   of 600, so that the flash kernel's 4096 window masks keys;
+   ``chatglm3_6b`` (32 heads on 2 kv heads) through the governed
+   continuous agent on slice 1's request pattern; ``mixtral_8x7b`` at 8
+   of its 32 layers through the governed static agent with prompts of
+   4,500 and 1,000 tokens. Each runs twice, kernel (flash once a layer a
+   prefill, or paged once a layer a step) then plain, and the tokens
+   must be equal. Every kernel launch of the kernel run is held to its
+   plain version on its own inputs under slice 3's rule, beside a broken
+   control (plain without the window; plain with the kv heads rolled).
+   The static prefills' logits and every layer's K/V are held to the
+   plain path's; for mixtral up to the first layer where the two paths
+   route a token otherwise, which must come after layer 0. Mixtral's
+   capacity rule must drop (token, expert) pairs, and a no-drop control
+   must move the logits; gemma2's window control must too. Then prefill
+   and decode times and profiles, and flash at gemma2's windowed layer
+   beside its bound and sdpa.
+9. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those of
+   its governed kernel runs, named on the line before), the card's name
+   and power limit, and last the ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -115,6 +137,20 @@ TRAIN_RTOL, UPDATE_RTOL = 1e-4, 1e-3
 # the replayed steps 5-8 against the first run's (bitwise where the card
 # is deterministic)
 REPLAY_RTOL = 1e-5
+# slice 5: gemma2_9b's prompts pass its 4096 window; mixtral_8x7b's too
+# (its ring-buffer cache wraps in decode), at 8 of its 32 layers (the
+# whole model is 187 GB in fp32)
+SLICE5_NEW_TOKENS = 8
+GEMMA2_PROMPTS = (4500, 600)
+MIXTRAL_PROMPTS = (4500, 1000)
+MIXTRAL_LAYERS = 8
+# slice 5's attention weights. init_params' rule (normal / sqrt(fan-in),
+# and wq's fan-in is its head count) gives q and k entries of std
+# sqrt(d_model / heads), so without qk norm these configs' scores
+# q.k / sqrt(head_dim) have a std in the hundreds, where fp32 attention
+# outputs turn on the order of their sums. wq and wk are scaled so that the
+# scores have this std, of the order a trained checkpoint's have.
+SCORE_STD = 4.0
 
 
 def _smi() -> str:
@@ -240,6 +276,12 @@ def check_paged_attention():
                                       n_pages_pool=24,
                                       ctx_lens=[64, 600, 129]),
          dict(softcap=50.0)),
+        ("chatglm3_6b heads 32/2 (16 a kv head)",
+         dict(s_n=5, h=32, kv=2, dh=128, page=16, n_pages_pool=160,
+              ctx_lens=[0, 1, 17, 556, 1023]), {}),
+        ("codeqwen15_7b heads 32/32 (1 a kv head)",
+         dict(s_n=5, h=32, kv=32, dh=128, page=16, n_pages_pool=160,
+              ctx_lens=[0, 1, 17, 556, 1023]), {}),
     ]
     worst = 0.0
     for label, shape, kw in cases:
@@ -535,10 +577,12 @@ def _wrappers():
             "flash_attention": flash_mha}
 
 
-def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
-    """Phases 5 and 6: one governed run of the static serving agent on the
-    card, a RuleVoter on STANDARD_RULES, ``policy`` on its scope. Every
-    kernel's count is zeroed just before the run and read just after."""
+def serve_static(cfg, params, requests, use_kernel: bool, policy=None,
+                 new_tokens: int = STATIC_NEW_TOKENS):
+    """Phases 5, 6 and 8: one governed run of the static serving agent on
+    the card, a RuleVoter on STANDARD_RULES, ``policy`` on its scope.
+    Every kernel's count is zeroed just before the run and read just
+    after."""
     import torch
     from repro_torch.core.acl import BusClient
     from repro_torch.core.entries import PayloadType
@@ -547,7 +591,7 @@ def serve_static(cfg, params, requests, use_kernel: bool, policy=None):
     agent = build_serving_agent(cfg, max_batch=STATIC_MAX_BATCH,
                                 use_kernel=use_kernel, device="cuda")
     agent.executor.env.params = params
-    agent.executor.env.max_new_tokens = STATIC_NEW_TOKENS
+    agent.executor.env.max_new_tokens = new_tokens
     agent.add_voter(RuleVoter(BusClient(agent.bus, "v-rule", "voter"),
                               rules=STANDARD_RULES), from_tail=False)
     agent.set_policy("decider", {"mode": "first_voter"})
@@ -613,7 +657,7 @@ def _top2_margin(model, params, toks, row, pos, tokens_so_far):
     import torch
     logits, cache = model.prefill(
         params, {"tokens": torch.from_numpy(toks).cuda()},
-        extra_cache=STATIC_NEW_TOKENS)
+        extra_cache=len(tokens_so_far[0]))
     for t in range(pos):
         tok = torch.tensor([[r[t]] for r in tokens_so_far], device="cuda")
         logits, cache = model.decode_step(params, cache, tok,
@@ -691,7 +735,6 @@ def governed_static(cfg, params, kernel: str, smi):
     whose policy denylists ``serve_batch`` (every intent aborted, no
     launch) and a plain run (no launch) whose tokens must equal the kernel
     run's. Returns the kernel run and its batches."""
-    from repro_torch.models.model import Model
     requests = static_requests(cfg)
     print(f"  requests (prompt len): " + ", ".join(
         f"{r['req_id']}({len(r['prompt_tokens'])})" for r in requests)
@@ -743,6 +786,19 @@ def governed_static(cfg, params, kernel: str, smi):
     ref = serve_static(cfg, params, requests, use_kernel=False)
     if ref["launches"] != _no_launches():
         raise AssertionError("the plain run launched a kernel")
+    _same_tokens(cfg, params, run, ref, batches)
+    print(f"  plain run on the card: identical tokens for all "
+          f"{len(ref['tokens'])} requests; wall {ref['wall']:.3f} s; e.g. "
+          + "; ".join(f"{r['req_id']} (last prompt token "
+                      f"{r['prompt_tokens'][-1]}): {run['tokens'][r['req_id']]}"
+                      for r in requests[:2]))
+    return run, batches
+
+
+def _same_tokens(cfg, params, run, ref, batches):
+    """Raises if the kernel run's tokens are not the plain run's, with the
+    plain path's top-2 logit margin where they first differ."""
+    from repro_torch.models.model import Model
     for rids, toks in batches:
         for row, rid in enumerate(rids):
             got, want = run["tokens"][rid], ref["tokens"][rid]
@@ -756,12 +812,6 @@ def governed_static(cfg, params, kernel: str, smi):
                     f"kernel vs plain tokens differ: {rid} first at decoded "
                     f"position {pos} ({got[pos]} vs {want[pos]}); the plain "
                     f"path's top-2 logit margin there is {margin}")
-    print(f"  plain run on the card: identical tokens for all "
-          f"{len(ref['tokens'])} requests; wall {ref['wall']:.3f} s; e.g. "
-          + "; ".join(f"{r['req_id']} (last prompt token "
-                      f"{r['prompt_tokens'][-1]}): {run['tokens'][r['req_id']]}"
-                      for r in requests[:2]))
-    return run, batches
 
 
 def slice_mamba2(smi):
@@ -773,15 +823,10 @@ def slice_mamba2(smi):
     from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.model import Model
-    from repro_torch.models.params import init_params
 
     cfg = get_config("mamba2_780m")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        SEED), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
+    params, n_params, secs = _fresh_params(cfg)
     s = cfg.ssm
     print(f"[slice 2] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, inner {s.expand * cfg.d_model}, "
@@ -789,7 +834,7 @@ def slice_mamba2(smi):
           f"d_state {s.d_state}, groups {s.n_groups}, chunk {s.chunk}, "
           f"vocab {cfg.vocab}; {n_params} fp32 params ({cfg.n_params()} "
           f"by the config's count) from torch.Generator seed {SEED} in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{secs:.2f} s")
     run, batches = governed_static(cfg, params, "ssd_intra", smi)
     launches = run["launches"]["ssd_intra"]
 
@@ -892,8 +937,10 @@ def check_flash_attention():
     case (where the Pallas kernel lets pad keys in), Sq > Sk without and
     with a window (rows that see no key give 0 in both), the full
     qwen3_4b prefill's shape, head dim 256 (gemma2_9b's) with a window and
-    softcap and at gemma2's heads, one query head a kv head, and a head dim
-    that is not a multiple of 4. Tolerance atol = rtol = FLASH_TOL."""
+    softcap and at gemma2's heads, one query head a kv head, a head dim
+    that is not a multiple of 4, and slice 5's windowed prefill layers of
+    gemma2_9b and mixtral_8x7b (S = 4500 past the 4096 window). Tolerance
+    atol = rtol = FLASH_TOL."""
     import numpy as np
     rng = np.random.default_rng(SEED)
     cases = [  # (label, (B, Sq, Sk, H, Kv, Dh), options)
@@ -918,6 +965,10 @@ def check_flash_attention():
         ("rep 1", (2, 200, 200, 4, 4, 128), {}),
         ("head dim 50 (4-byte copies), rep 3", (1, 150, 150, 6, 2, 50),
          dict(window=40)),
+        ("gemma2_9b windowed layer, S past the window",
+         (2, 4500, 4500, 16, 8, 256), dict(window=4096, softcap=50.0)),
+        ("mixtral_8x7b layer, S past the window",
+         (2, 4500, 4500, 32, 8, 128), dict(window=4096)),
     ]
     worst = 0.0
     for label, shape, kw in cases:
@@ -947,24 +998,25 @@ def _flash_err(label, case, kw):
     return err.max().item()
 
 
-def time_flash_attention(case, flush, softcap=None):
+def time_flash_attention(case, flush, softcap=None, window=None):
     """Kernel, plain version, bound and library call at one causal input
-    set without a window (q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as the dense
-    prefill calls it. The library call has no softcap: with one, it is
-    a yardstick of the same shapes only."""
+    set (q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as the dense prefill calls it,
+    with a window or without. The library call has no softcap: with one,
+    it is a yardstick of the same shapes only."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_mha,
                                                      flash_mha_plain)
     q, k, v = case
     bsz, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    ms = _time_ms(lambda: flash_mha(q, k, v, softcap=softcap), flush)
-    plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v, softcap=softcap),
-                        flush)
+    kw = dict(softcap=softcap, window=window)
+    ms = _time_ms(lambda: flash_mha(q, k, v, **kw), flush)
+    plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v, **kw), flush)
     # the least work: 2 FLOPs per MAC of q.k and of p.v over the visible
-    # (q, k) pairs (k <= q) of every query head; q and K/V (once per kv
-    # head) read once, the output written once
-    visible = sum(min(sk, i + 1) for i in range(sq))
+    # (q, k) pairs (k <= q, and k > q - window) of every query head; q and
+    # K/V (once per kv head) read once, the output written once
+    visible = sum(min(sk, i + 1, window or sk) for i in range(sq))
     n_ops = 4 * dh * visible * bsz * h
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
@@ -974,8 +1026,15 @@ def time_flash_attention(case, flush, softcap=None):
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), flush)
+    if window is None:
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush)
+    else:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None]
+        mask = (ki <= qi) & (ki > qi - window)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), flush)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 library_ms=library_ms, flop=n_ops, bytes=n_bytes)
@@ -1015,20 +1074,9 @@ def slice_qwen3_static(smi, cfg, params):
     kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
     _, toks = max(batches, key=lambda bt: bt[1].shape[1])
     tok_t = torch.from_numpy(toks).cuda()
-    kl, kk, kv = _prefill_kv(kmodel, params, tok_t)
-    pl, pk, pv = _prefill_kv(pmodel, params, tok_t)
-    lmax, kmax, vmax = (t.abs().max().item() for t in (pl, pk, pv))
-
-    def gaps(logits, k, v):
-        """Max abs diff from the plain path of the logits, K and V, and
-        whether each is within its limit."""
-        lerr = (logits - pl).abs().max().item()
-        kerr, verr = (k - pk).abs(), (v - pv).abs()
-        return (lerr, kerr.max().item(), verr.max().item(),
-                lerr <= LOGIT_RTOL * lmax,
-                bool(torch.all(kerr <= CACHE_TOL * (kmax + pk.abs())))
-                and bool(torch.all(verr <= CACHE_TOL * (vmax + pv.abs()))))
-
+    kernel = _prefill_kv(kmodel, params, tok_t)
+    plain = _prefill_kv(pmodel, params, tok_t)
+    lmax, kmax, vmax = (t.abs().max().item() for t in plain)
     attention = model_lib.attention
 
     def not_causal(q, k, v, **kw):
@@ -1040,27 +1088,25 @@ def slice_qwen3_static(smi, cfg, params):
         calls.append(1)
         o = attention(q, k, v, **kw)
         return torch.zeros_like(o) if len(calls) == cfg.n_layers else o
-    kgap = gaps(kl, kk, kv)
-    del kl, kk, kv
+    kgap = _kv_gaps(kernel, plain)
+    del kernel
     controls = {}
     for label, fn in (("attention not causal", not_causal),
                       ("the last layer's attention output zeroed",
                        last_layer_zeroed)):
         model_lib.attention = fn
         try:
-            controls[label] = gaps(*_prefill_kv(pmodel, params, tok_t))
+            controls[label] = _kv_gaps(_prefill_kv(pmodel, params, tok_t),
+                                       plain)
         finally:
             model_lib.attention = attention
     print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|k| "
           f"{kmax:.4e}, max|v| {vmax:.4e}; limits: logits {LOGIT_RTOL} x "
           f"max|logit|, K and V {CACHE_TOL} x max + rtol {CACHE_TOL}")
-    for label, (lerr, kerr, verr, lok, kvok) in [("kernel", kgap)] + [
+    for label, g in [("kernel", kgap)] + [
             (f"control, plain with {c}", g) for c, g in controls.items()]:
-        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
-              f"({'within' if lok else 'over'} the limit), every layer's K "
-              f"{kerr:.4e} V {verr:.4e} ({'within' if kvok else 'over'} "
-              f"the limit)")
-    if not (torch.isfinite(pl).all() and kgap[3] and kgap[4]):
+        _print_gaps(label, g)
+    if not (torch.isfinite(plain[0]).all() and kgap[3] and kgap[4]):
         raise AssertionError("full-width prefill: kernel vs plain logits or "
                              "K/V over the limit")
     nc, lz = controls.values()
@@ -1068,7 +1114,7 @@ def slice_qwen3_static(smi, cfg, params):
         raise AssertionError("a broken attention path passed the limits: "
                              "not causal within the K/V limit, or the last "
                              "layer zeroed within the logits limit")
-    del pl, pk, pv, run
+    del plain, run
 
     time_static(kmodel, params, batches, smi)
 
@@ -1193,23 +1239,40 @@ def main() -> None:
 
     # 7. slice 4: governed training at full qwen3_4b width
     slice_training(smi)
+    torch.cuda.empty_cache()
 
-    # 8. result lines
+    # 8. slice 5: gemma2_9b, chatglm3_6b and mixtral_8x7b at full width
+    new = slice_new_configs(smi)
+
+    # 9. result lines; each kernel's launches are those of its governed
+    # kernel runs on the main paths
+    launches = {
+        "paged_attention": paged["launches"] + new["paged_attention"],
+        "ssd_intra": ssd["launches"],
+        "flash_attention": flash["launches"] + new["flash_attention"]}
+    print(f"[launches] paged_attention {launches['paged_attention']} = "
+          f"{paged['launches']} (slice 1, qwen3_4b continuous) + "
+          f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
+          f"ssd_intra {ssd['launches']} (slice 2, mamba2_780m static); "
+          f"flash_attention {launches['flash_attention']} = "
+          f"{flash['launches']} (slice 3, qwen3_4b static) + "
+          + " + ".join(f"{n} (slice 5, {a} static)"
+                       for a, n in new["flash_by_run"].items()))
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:45",
-                "launches": paged["launches"], "max_abs_err": paged_err,
-                **paged["timing"]},
+                "launches": launches["paged_attention"],
+                "max_abs_err": paged_err, **paged["timing"]},
                {"name": "ssd_intra", "route": "cuda",
                 "source": "src/repro_torch/csrc/ssd_scan.cu",
                 "replaces": "src/repro/kernels/ssd_scan.py:27",
-                "launches": ssd["launches"], "max_abs_err": ssd_err,
+                "launches": launches["ssd_intra"], "max_abs_err": ssd_err,
                 **ssd["timing"]},
                {"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:26",
-                "launches": flash["launches"], "max_abs_err": flash_err,
-                **flash["timing"]}]
+                "launches": launches["flash_attention"],
+                "max_abs_err": flash_err, **flash["timing"]}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1228,20 +1291,14 @@ def slice_qwen3(smi):
     from repro_torch.kernels.flash_attention import flash_mha
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.ssd_scan import ssd_intra
-    from repro_torch.models.params import init_params
-    from repro_torch.serving.engine import PagedEngine
 
     cfg = get_config("qwen3_4b")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        SEED), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
+    params, n_params, secs = _fresh_params(cfg)
     print(f"[slice 1] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} fp32 params from "
-          f"torch.Generator seed {SEED} in {time.perf_counter() - t0:.2f} s")
+          f"torch.Generator seed {SEED} in {secs:.2f} s")
     requests = make_requests(cfg, np.random.default_rng(SEED))
     blocked = [r["req_id"] for r in requests if r["tenant"] == "blocked"]
     served = {r["req_id"]: r for r in requests if r["tenant"] != "blocked"}
@@ -1295,35 +1352,7 @@ def slice_qwen3(smi):
           f"{len(pl.outputs)} requests; wall {ref['wall']:.3f} s")
     del ref
 
-    # timings on the engine itself (kernel path) at the main path's shape
-    eng = PagedEngine(cfg, max_batch=MAX_BATCH, num_pages=NUM_PAGES,
-                      page_size=PAGE_SIZE,
-                      max_pages_per_seq=MAX_PAGES_PER_SEQ, params=params,
-                      device="cuda")
-    prefill_ms = []
-    for r in list(served.values())[:MAX_BATCH]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        assert eng.admit(r["req_id"], r["prompt_tokens"], 64)
-        torch.cuda.synchronize()
-        prefill_ms.append((len(r["prompt_tokens"]),
-                           (time.perf_counter() - t0) * 1e3))
-    eng.step()  # warm
-    n_steps = 16
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        eng.step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    print(f"  prefill ms per request (prompt len, ms): "
-          + ", ".join(f"({n}, {ms:.2f})" for n, ms in prefill_ms)
-          + f" | decode step {step_ms:.2f} ms for {MAX_BATCH} lanes = "
-          f"{MAX_BATCH * 1e3 / step_ms:.2f} tokens/s | peak memory "
-          f"{torch.cuda.max_memory_allocated()} B | on {smi}")
-
-    # where a decode step's device time goes (torch.profiler, CUPTI)
-    _profile("decode steps", [eng.step] * 3, 3)
+    eng = time_continuous(cfg, params, served, smi)
 
     # the kernel timed at this decode step's own inputs (layer 0's arena)
     lanes = list(eng.lanes)
@@ -1355,6 +1384,44 @@ def slice_qwen3(smi):
     t.pop("ctx")
     t.pop("blocks")
     return {"launches": launches, "timing": t, "cfg": cfg, "params": params}
+
+
+def time_continuous(cfg, params, served, smi):
+    """A continuous slice's readings on the engine itself (kernel path):
+    MAX_BATCH requests' prefills, the decode step over all lanes, peak
+    memory, and a profile of three decode steps. Returns the engine, its
+    lanes still full."""
+    import torch
+    from repro_torch.serving.engine import PagedEngine
+    eng = PagedEngine(cfg, max_batch=MAX_BATCH, num_pages=NUM_PAGES,
+                      page_size=PAGE_SIZE,
+                      max_pages_per_seq=MAX_PAGES_PER_SEQ, params=params,
+                      device="cuda")
+    prefill_ms = []
+    for r in list(served.values())[:MAX_BATCH]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert eng.admit(r["req_id"], r["prompt_tokens"], 64)
+        torch.cuda.synchronize()
+        prefill_ms.append((len(r["prompt_tokens"]),
+                           (time.perf_counter() - t0) * 1e3))
+    eng.step()  # warm
+    n_steps = 16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    print(f"  prefill ms per request (prompt len, ms): "
+          + ", ".join(f"({n}, {ms:.2f})" for n, ms in prefill_ms)
+          + f" | decode step {step_ms:.2f} ms for {MAX_BATCH} lanes = "
+          f"{MAX_BATCH * 1e3 / step_ms:.2f} tokens/s | peak memory "
+          f"{torch.cuda.max_memory_allocated()} B | on {smi}")
+
+    # where a decode step's device time goes (torch.profiler, CUPTI)
+    _profile("decode steps", [eng.step] * 3, 3)
+    return eng
 
 
 def _profile(label, calls, n_rep):
@@ -1738,6 +1805,493 @@ def slice_training(smi):
           f"{time.perf_counter() - t0:.2f} s | on {smi}")
     if any(launches.values()):
         raise AssertionError("a serving kernel launched during training")
+
+
+# ---------------------------------------------------------------------------
+# slice 5: the last dense configs and the moe family at full width
+# ---------------------------------------------------------------------------
+
+def _fresh_params(cfg):
+    """``cfg``'s fp32 parameters on the card from torch.Generator seed SEED,
+    with their count and the seconds they took."""
+    import torch
+    from repro_torch.models.params import init_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), "cuda")
+    torch.cuda.synchronize()
+    return params, sum(p.numel() for p in _leaves(params)), \
+        time.perf_counter() - t0
+
+
+def _slice5_params(cfg):
+    """``_fresh_params`` with every layer's ``wq`` and ``wk`` scaled so
+    that, on the unit-RMS rows the pre-attention norm gives, each q and k
+    entry has variance SCORE_STD and the scores q.k / sqrt(head_dim) have
+    std SCORE_STD."""
+    params, n_params, secs = _fresh_params(cfg)
+    attn, a = params["layers"]["attn"], math.sqrt(SCORE_STD)
+    attn["wq"].mul_(a * math.sqrt(cfg.n_heads / cfg.d_model))
+    attn["wk"].mul_(a * math.sqrt(cfg.n_kv_heads / cfg.d_model))
+    return params, n_params, secs
+
+
+def slice5_requests(cfg, lens):
+    """One request a prompt length, the tokens from a numpy seed."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 5)
+    return [{"req_id": f"req-{i}", "prompt_tokens": rng.integers(
+        0, cfg.vocab, size=n).tolist()} for i, n in enumerate(lens)]
+
+
+def governed_static_runs(cfg, params, requests, smi):
+    """The governed static agent on the card, the kernel run then the plain
+    run: one committed ``serve_batch`` intent each, flash launched once a
+    layer in the kernel run and no kernel in the plain run, and the same
+    tokens. Returns the kernel run's flash launches and its batches."""
+    import torch
+    lens = [len(r["prompt_tokens"]) for r in requests]
+    runs = {}
+    for label, use_kernel in (("kernel", True), ("plain", False)):
+        torch.cuda.reset_peak_memory_stats()
+        run = serve_static(cfg, params, requests, use_kernel=use_kernel,
+                           new_tokens=SLICE5_NEW_TOKENS)
+        ids = [b["intent_id"] for b in run["intents"]]
+        want = dict(_no_launches(),
+                    flash_attention=cfg.n_layers if use_kernel else 0)
+        print(f"  {label} run: prompts {lens}, {SLICE5_NEW_TOKENS} new "
+              f"tokens; serve_batch intents {len(ids)}, committed "
+              f"{len(run['commits'] & set(ids))}; launches "
+              f"{run['launches']} (want {want}); wall {run['wall']:.3f} s; "
+              f"peak memory {torch.cuda.max_memory_allocated()} B | on {smi}")
+        if len(ids) != 1 or not set(ids) <= run["commits"] \
+                or run["aborts"] or not all(
+                    b["ok"] for b in run["results"].values()) \
+                or sorted(run["tokens"]) != sorted(
+                    r["req_id"] for r in requests):
+            raise AssertionError("want one committed serve_batch intent "
+                                 "that serves every request")
+        if run["launches"] != want:
+            raise AssertionError("the prefill did not launch flash once a "
+                                 "layer (kernel run) or the plain run "
+                                 "launched a kernel")
+        for rid, toks in run["tokens"].items():
+            if len(toks) != SLICE5_NEW_TOKENS or not all(
+                    0 <= t < cfg.vocab for t in toks):
+                raise AssertionError(f"{rid}: bad tokens {toks}")
+        runs[label] = run
+    batches = _batch_tokens(runs["kernel"], requests)
+    _same_tokens(cfg, params, runs["kernel"], runs["plain"], batches)
+    print("  kernel and plain runs: identical tokens; " + "; ".join(
+        f"{r}: {t}" for r, t in runs["kernel"]["tokens"].items()))
+    return runs["kernel"]["launches"]["flash_attention"], batches
+
+
+def _kv_gaps(got, want, layers=slice(None)):
+    """Max abs diff of logits, K and V from the plain path's ``want`` and
+    whether each is within its limit (logits LOGIT_RTOL x max|logit|; K
+    and V CACHE_TOL x max + rtol CACHE_TOL, slice 3's rule, the max over
+    every layer), over the K/V of ``layers``."""
+    import torch
+    (gl, gk, gv), (wl, wk, wv) = got, want
+    lerr = (gl - wl).abs().max().item()
+    kmax, vmax = wk.abs().max(), wv.abs().max()
+    gk, gv, wk, wv = gk[layers], gv[layers], wk[layers], wv[layers]
+    kerr, verr = (gk - wk).abs(), (gv - wv).abs()
+    return (lerr, kerr.max().item(), verr.max().item(),
+            lerr <= LOGIT_RTOL * wl.abs().max().item(),
+            bool(torch.all(kerr <= CACHE_TOL * (kmax + wk.abs())))
+            and bool(torch.all(verr <= CACHE_TOL * (vmax + wv.abs()))))
+
+
+def _print_gaps(label, g):
+    lerr, kerr, verr, lok, kvok = g
+    print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
+          f"({'within' if lok else 'over'} the limit), K {kerr:.4e} V "
+          f"{verr:.4e} ({'within' if kvok else 'over'} the limit)")
+
+
+def _launch_check(out, ref, control=None):
+    """One kernel launch against its plain version ``ref`` on the same
+    inputs, under slice 3's rule (|out - ref| <= CACHE_TOL x (max|ref| +
+    |ref|)): (max abs err, the largest ratio of an element's error to its
+    limit, and that ratio for ``control``, a broken plain version, or
+    None). A NaN anywhere makes a ratio NaN, which fails."""
+    lim = CACHE_TOL * (ref.abs().max() + ref.abs())
+    ratio = ((out - ref).abs() / lim).max().item()
+    c = None if control is None else ((control - ref).abs() / lim
+                                      ).max().item()
+    return (out - ref).abs().max().item(), ratio, c
+
+
+def _hold_launches(name, log, control, unit="launches"):
+    """Every launch of a run within slice 3's rule of its plain version,
+    and every broken control (one at least) beyond it."""
+    worst = max(r for _, r, _ in log)
+    ctl = [c for _, _, c in log if c is not None]
+    print(f"  {name}: {len(log)} {unit}, each held to its plain version on "
+          f"its own inputs (slice 3's rule): max abs err "
+          f"{max(e for e, _, _ in log):.3e}, largest error / limit "
+          f"{worst:.3g}; broken control ({control}) on {len(ctl)} of them, "
+          f"least error / limit {min(ctl) if ctl else math.nan:.3g}")
+    if not worst <= 1.0 or not ctl or not min(ctl) > 1.0:
+        raise AssertionError(f"{name}: a launch missed its plain version, "
+                             f"or a broken control met the limit")
+
+
+def _flash_checker(log):
+    """A stand-in for the model's ``flash_mha`` that launches the kernel
+    and logs ``_launch_check`` of each batch row against
+    ``flash_mha_plain``; a launch with a window has the plain version
+    without it as its broken control."""
+    from repro_torch.kernels.flash_attention import (flash_mha,
+                                                     flash_mha_plain)
+
+    def checked(q, k, v, **kw):
+        o = flash_mha(q, k, v, **kw)
+        windowed = kw["window"] < q.shape[1] + k.shape[1]
+        for i in range(q.shape[0]):
+            args = (q[i:i + 1], k[i:i + 1], v[i:i + 1])
+            ref = flash_mha_plain(*args, **kw)
+            control = flash_mha_plain(*args, **dict(kw, window=None)) \
+                if windowed else None
+            log.append(_launch_check(o[i:i + 1], ref, control))
+            del ref, control
+        return o
+    return checked
+
+
+def _routing_recorder():
+    """Wraps ``moe.dispatch_plan`` to keep each call's (top_e, keep), one
+    call a moe layer; returns (the log, a function that puts it back)."""
+    from repro_torch.models import moe as moe_lib
+    plan = moe_lib.dispatch_plan
+    log = []
+
+    def recording(top_e, n_experts, cap):
+        out = plan(top_e, n_experts, cap)
+        log.append((top_e.clone(), out[3].clone()))
+        return out
+    moe_lib.dispatch_plan = recording
+
+    def restore():
+        moe_lib.dispatch_plan = plan
+    return log, restore
+
+
+def _prefill_with(model, params, tok_t, flash=None, routing=False):
+    """``_prefill_kv`` with the model's ``flash_mha`` replaced by ``flash``
+    (if given) and, with ``routing``, each moe layer's (top_e, keep)
+    recorded. Returns (logits, K, V) and the routing log."""
+    from repro_torch.models import model as model_lib
+    saved = model_lib.flash_mha
+    log, restore = _routing_recorder() if routing else ([], lambda: None)
+    if flash is not None:
+        model_lib.flash_mha = flash
+    try:
+        return _prefill_kv(model, params, tok_t), log
+    finally:
+        model_lib.flash_mha = saved
+        restore()
+
+
+def hold_prefill(cfg, params, toks, routing=False):
+    """One full-width prefill, kernel path against plain path. Every flash
+    launch is held to its plain version on the same q/k/v, a row of its
+    batch at a time (``_flash_checker``), beside the plain version without
+    the window. Returns the kernel path's and the plain path's (logits, K,
+    V) and, with ``routing``, both paths' routing logs."""
+    import torch
+    from repro_torch.models.model import Model
+    tok_t = torch.from_numpy(toks).cuda()
+    plain, prout = _prefill_with(Model(cfg, use_kernel=False), params, tok_t,
+                                 routing=routing)
+    launches = []
+    kernel, krout = _prefill_with(Model(cfg), params, tok_t,
+                                  flash=_flash_checker(launches),
+                                  routing=routing)
+    print(f"  prefill {tuple(toks.shape)}:")
+    if len(launches) != cfg.n_layers * toks.shape[0]:
+        raise AssertionError(f"{cfg.arch_id}: not one flash launch a layer")
+    _hold_launches("flash_mha", launches, "plain without the window",
+                   unit="launch rows (a launch a layer, a row of its batch "
+                   "each)")
+    return kernel, plain, (krout, prout)
+
+
+def slice5_gemma2(smi):
+    """gemma2_9b at full width through the governed static agent, with a
+    prompt longer than its 4096 window: the flash kernel's window masks
+    keys in every even layer. Returns the flash launches of the governed
+    kernel run."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_mha
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import INF_WINDOW, Model
+    t_slice = time.perf_counter()
+    cfg = get_config("gemma2_9b")
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params, secs = _slice5_params(cfg)
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers (even ones windowed "
+          f"{cfg.window}), d_model {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff} (gelu), "
+          f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, vocab "
+          f"{cfg.vocab}; {n_params} fp32 params in {secs:.2f} s")
+    launches, batches = governed_static_runs(
+        cfg, params, slice5_requests(cfg, GEMMA2_PROMPTS), smi)
+
+    # the (2, 4500) prefill, kernel vs plain: the logits and every layer's
+    # K/V; the broken control runs the plain path with no window on any
+    # layer (the even layers' 4096 replaced by INF_WINDOW)
+    _, toks = batches[0]
+    kernel, plain, _ = hold_prefill(cfg, params, toks)
+    kgap = _kv_gaps(kernel, plain)
+    del kernel
+    pmodel = Model(cfg, use_kernel=False)
+    pmodel._window_array = lambda: [INF_WINDOW] * cfg.n_layers
+    cgap = _kv_gaps(_prefill_with(pmodel, params,
+                                  torch.from_numpy(toks).cuda())[0], plain)
+    print(f"  held: the logits (limit {LOGIT_RTOL} x max|logit|) and every "
+          f"layer's K/V (limit {CACHE_TOL} x max + rtol {CACHE_TOL})")
+    _print_gaps("kernel", kgap)
+    _print_gaps("control, plain without the 4096 window (all layers)", cgap)
+    if not (torch.isfinite(plain[0]).all() and kgap[3] and kgap[4]):
+        raise AssertionError("gemma2 prefill: kernel vs plain over the "
+                             "limit")
+    if cgap[3]:
+        raise AssertionError("the plain path without the window met the "
+                             "logits limit: the window masks nothing here")
+    del plain
+    time_static(Model(cfg), params, batches, smi)
+
+    # the kernel timed at layer 0's windowed shape in that prefill
+    captured = []
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append(([t.clone() for t in (q, k, v)], kw))
+        return flash_mha(q, k, v, **kw)
+    model_lib.flash_mha = capture
+    try:
+        Model(cfg).prefill(params, {"tokens": torch.from_numpy(toks).cuda()})
+    finally:
+        model_lib.flash_mha = flash_mha
+    (case, kw), = captured
+    del captured
+    if kw["window"] != cfg.window or kw["softcap"] != cfg.attn_softcap:
+        raise AssertionError(f"layer 0 called flash_mha with {kw}")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    t = time_flash_attention(case, flush, softcap=cfg.attn_softcap,
+                             window=cfg.window)
+    print(f"  flash_mha at gemma2_9b's layer 0 q {tuple(case[0].shape)} k/v "
+          f"{tuple(case[1].shape)} causal window {cfg.window} softcap "
+          f"{cfg.attn_softcap}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['flop']} FLOP over the window's visible "
+          f"pairs, {t['bytes']} B), sdpa (window mask, no softcap) on K/V "
+          f"repeated to {cfg.n_heads} heads {t['library_ms']:.4f} ms | "
+          f"kernel at {t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
+    print(f"  gemma2_9b peak memory {torch.cuda.max_memory_allocated()} B; "
+          f"wall {time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+def _paged_checker(log):
+    """A stand-in for the engine's ``paged_attention`` that launches the
+    kernel and logs ``_launch_check`` of each launch against
+    ``paged_attention_plain``, the broken control being the plain version
+    with the kv heads rolled by one, so that every query head reads
+    another kv head's keys and values (a wrong GQA map)."""
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+
+    def checked(q, kp, vp, bt, cl, **kw):
+        o = paged_attention(q, kp, vp, bt, cl, **kw)
+        log.append(_launch_check(
+            o, paged_attention_plain(q, kp, vp, bt, cl, **kw),
+            paged_attention_plain(q, kp.roll(1, dims=2),
+                                  vp.roll(1, dims=2), bt, cl, **kw)))
+        return o
+    return checked
+
+
+def slice5_chatglm3(smi):
+    """chatglm3_6b at full width (32 heads on 2 kv heads: 16 a kv head)
+    through the governed continuous agent on slice 1's request pattern:
+    the kernel run (each paged launch held to its plain version on its own
+    inputs) and the plain run, with the same tokens. Returns the paged
+    launches of the kernel run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving import engine as engine_lib
+    t_slice = time.perf_counter()
+    cfg = get_config("chatglm3_6b")
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params, secs = _slice5_params(cfg)
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, rope "
+          f"fraction {cfg.rope_fraction}, untied head, vocab {cfg.vocab}; "
+          f"{n_params} fp32 params in {secs:.2f} s")
+    requests = make_requests(cfg, np.random.default_rng(SEED))
+    served = {r["req_id"]: r for r in requests if r["tenant"] != "blocked"}
+    blocked = [r["req_id"] for r in requests if r["tenant"] == "blocked"]
+    wrappers = _wrappers()
+    checks, outs = [], {}
+    kernel_fn = engine_lib.paged_attention
+    for label, use_kernel in (("kernel", True), ("plain", False)):
+        if use_kernel:
+            engine_lib.paged_attention = _paged_checker(checks)
+        for fn in wrappers.values():
+            fn.launches = 0
+        try:
+            run = serve(cfg, params, requests, use_kernel=use_kernel)
+        finally:
+            engine_lib.paged_attention = kernel_fn
+        pl, eng = run["planner"], run["engine"]
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        want = dict(_no_launches(), paged_attention=eng.n_steps
+                    * cfg.n_layers if use_kernel else 0)
+        print(f"  {label} run: served {len(pl.outputs)} rejected "
+              f"{pl.rejected} decode steps {eng.n_steps}; launches "
+              f"{launches} (want {want}: {eng.n_steps} steps x "
+              f"{cfg.n_layers} layers); wall {run['wall']:.3f} s | on {smi}")
+        if set(pl.outputs) != set(served) or pl.rejected != blocked:
+            raise AssertionError("served/rejected sets differ from the plan")
+        if launches != want or eng.n_steps == 0:
+            raise AssertionError("the decode steps did not all go through "
+                                 "the paged kernel, or another kernel ran")
+        for rid, toks in pl.outputs.items():
+            if len(toks) != served[rid]["max_new_tokens"] or not all(
+                    0 <= t < cfg.vocab for t in toks):
+                raise AssertionError(f"{rid}: bad tokens {toks}")
+        outs[label] = (dict(pl.outputs), launches["paged_attention"])
+        del run, pl, eng
+    if len(checks) != outs["kernel"][1]:
+        raise AssertionError("not every paged launch was held")
+    _hold_launches("paged_attention", checks,
+                   "plain with the kv heads rolled")
+    got, want = outs["kernel"][0], outs["plain"][0]
+    differ = {rid: next(i for i, (u, v) in enumerate(zip(got[rid], toks))
+                        if u != v)
+              for rid, toks in want.items() if got[rid] != toks}
+    if differ:
+        raise AssertionError(f"kernel vs plain tokens differ (request: "
+                             f"first decoded position) {differ}")
+    print(f"  kernel and plain runs: identical tokens for all "
+          f"{len(outs['plain'][0])} served requests ("
+          f"{sum(map(len, outs['plain'][0].values()))} tokens)")
+    time_continuous(cfg, params, served, smi)
+    print(f"  chatglm3_6b peak memory {torch.cuda.max_memory_allocated()} B;"
+          f" wall {time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return outs["kernel"][1]
+
+
+def slice5_mixtral(smi):
+    """mixtral_8x7b at full width, depth cut to MIXTRAL_LAYERS layers,
+    through the governed static agent with prompts longer than its 4096
+    window (the prefill's flash launches mask by the window; decode writes
+    the ring-buffer cache). The capacity rule drops pairs; a no-drop
+    control must move the logits. Returns the flash launches of the
+    governed kernel run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import capacity
+    t_slice = time.perf_counter()
+    full = get_config("mixtral_8x7b")
+    cfg = dataclasses.replace(full, n_layers=MIXTRAL_LAYERS)
+    m = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params, secs = _slice5_params(cfg)
+    print(f"  {cfg.arch_id}: {cfg.n_layers} of {full.n_layers} layers "
+          f"(depth cut: the {full.n_params()} fp32 params need "
+          f"{4 * full.n_params() / 1e9:.1f} GB), d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, window "
+          f"{cfg.window}, {m.n_experts} experts of {m.d_ff_expert}, top "
+          f"{m.top_k}, capacity factor {m.capacity_factor}; {n_params} fp32 "
+          f"params in {secs:.2f} s")
+    launches, batches = governed_static_runs(
+        cfg, params, slice5_requests(cfg, MIXTRAL_PROMPTS), smi)
+
+    # the (2, 4500) prefill, kernel vs plain, with every layer's routing
+    # recorded: the K/V are held up to the first layer where the two paths
+    # route a token otherwise (inclusive: its K/V come before its moe
+    # block), and the logits only if no layer does; that must cover layer
+    # 1, the first after an attention and a moe block
+    _, toks = batches[0]
+    n_tok = toks.size
+    kernel, plain, (krout, prout) = hold_prefill(cfg, params, toks,
+                                                 routing=True)
+    differ = [int((ke != pe).any(-1).sum())
+              for (ke, _), (pe, _) in zip(krout, prout)]
+    first = next((i for i, d in enumerate(differ) if d), None)
+    dropped = [int((~keep).sum()) for _, keep in krout]
+    cap = capacity(n_tok, m.n_experts, m.top_k, m.capacity_factor)
+    print(f"  capacity C = {cap} of {n_tok} tokens x top {m.top_k} over "
+          f"{m.n_experts} experts; (token, expert) pairs dropped per prefill "
+          f"layer {dropped} (of {n_tok * m.top_k}); tokens routed otherwise, "
+          f"kernel vs plain, per layer {differ}")
+    if not sum(dropped):
+        raise AssertionError("mixtral: the capacity rule dropped no pair")
+    upto = cfg.n_layers if first is None else first + 1
+    if upto < 2:
+        raise AssertionError("mixtral: layer 0 routes a token otherwise, so "
+                             "no layer after a moe block can be held")
+    kgap = _kv_gaps(kernel, plain, slice(0, upto))
+    del kernel
+    print(f"  held: K/V of layers 0-{upto - 1}"
+          + (" and the logits (no routing decision differs)"
+             if first is None else f" (layer {first} routes "
+             f"{differ[first]} tokens otherwise: the logits are not held)"))
+    _print_gaps("kernel", kgap)
+    if not (torch.isfinite(plain[0]).all() and kgap[4]
+            and (first is not None or kgap[3])):
+        raise AssertionError("mixtral prefill: kernel vs plain over the "
+                             "limit")
+
+    # broken control: the plain path at a capacity factor that drops
+    # nothing (C = N) must move the logits past the limit
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    control, crout = _prefill_with(Model(no_drop, use_kernel=False), params,
+                                   torch.from_numpy(toks).cuda(),
+                                   routing=True)
+    cgap = _kv_gaps(control, plain)
+    c_dropped = sum(int((~keep).sum()) for _, keep in crout)
+    _print_gaps(f"control, plain at capacity factor "
+                f"{no_drop.moe.capacity_factor} ({c_dropped} dropped)", cgap)
+    if c_dropped or cgap[3]:
+        raise AssertionError("the no-drop control dropped pairs or met the "
+                             "logits limit")
+    del control, plain
+    time_static(Model(cfg), params, batches, smi)
+    print(f"  mixtral_8x7b peak memory {torch.cuda.max_memory_allocated()} "
+          f"B; wall {time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+def slice_new_configs(smi):
+    """Phase 8: gemma2_9b (static), chatglm3_6b (continuous) and
+    mixtral_8x7b (static, 8 layers) at full width, one after another,
+    each run's weights freed before the next. Returns the flash and paged
+    launches of their governed kernel runs."""
+    import torch
+    print(f"[slice 5] the last dense configs and the moe family at full "
+          f"width, fp32 random weights (torch.Generator seed {SEED}) on "
+          f"{smi}")
+    t0 = time.perf_counter()
+    flash = slice5_gemma2(smi)
+    torch.cuda.empty_cache()
+    paged = slice5_chatglm3(smi)
+    torch.cuda.empty_cache()
+    flash_moe = slice5_mixtral(smi)
+    torch.cuda.empty_cache()
+    print(f"  slice 5 wall {time.perf_counter() - t0:.2f} s | on {smi}")
+    return {"flash_attention": flash + flash_moe, "paged_attention": paged,
+            "flash_by_run": {"gemma2_9b": flash, "mixtral_8x7b": flash_moe}}
 
 
 def _leaves(tree):

@@ -3,8 +3,10 @@
 Every assigned architecture is a module ``repro_torch.configs.<arch_id>``
 exposing ``CONFIG`` (exact paper/HF numbers) and the registry maps
 ``--arch`` ids to them. ``smoke()`` returns a reduced same-family config
-for CPU tests. The port carries only the architectures it serves so far
-(``qwen3_4b``, ``mamba2_780m``); ``get_config`` of another id raises
+for CPU tests. The port carries only the architectures it runs so far:
+the dense ``qwen3_4b``, ``gemma2_9b``, ``chatglm3_6b`` and
+``codeqwen15_7b``, the moe ``mixtral_8x7b`` and ``kimi_k2_1t_a32b``, and
+the ssm ``mamba2_780m``; ``get_config`` of another id raises
 ``ModuleNotFoundError``.
 """
 from __future__ import annotations

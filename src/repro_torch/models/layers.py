@@ -10,11 +10,13 @@ sharding annotations have no counterpart on one card and are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 DENSE_ATTN_MAX_KV = 2048  # above this, use the chunked online-softmax path
 
@@ -97,6 +99,24 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, Dh).to(q.dtype)
 
 
+def _chunk_math(qg, pos_q, kci, vci, pci, m, l, acc, *, causal, window,
+                softcap):
+    """One KV chunk of the online softmax: the carried (m, l, acc) after
+    the chunk's keys kci/vci at positions pci."""
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kci.float())
+    s = _softcap(s, softcap)
+    s = s + _mask_bias(pos_q, pci, causal, window)[:, None, None]
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    # guard fully-masked rows (m_new = -inf): exp(-inf - -inf) -> nan
+    m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    p = torch.exp(s - m_safe[..., None])
+    corr = torch.exp(torch.where(torch.isneginf(m), m_safe, m) - m_safe)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bgrqk,bkgd->bqgrd", p, vci.float())
+    acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
+    return m_new, l, acc
+
+
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       pos_q: torch.Tensor, pos_k: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
@@ -104,7 +124,14 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention looping over KV chunks: O(Sq * kv_chunk)
-    score memory instead of O(Sq * Sk). Matches attention_ref."""
+    score memory instead of O(Sq * Sk). Matches attention_ref.
+
+    Under autograd each chunk runs under ``torch.utils.checkpoint``, so
+    the backward keeps only each chunk's inputs and carried (m, l, acc)
+    and recomputes the chunk's scores, as the reference's
+    ``jax.checkpoint(policy=nothing_saveable)`` does; without it every
+    chunk's softmax would be saved and the memory would be O(Sq * Sk)
+    again. Without grad the loop runs as it is (the same forward bits)."""
     B, Sq, H, Dh = q.shape
     Sk, Kv = k.shape[1], k.shape[2]
     if Sk % kv_chunk != 0:
@@ -119,22 +146,14 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((B, Kv, rep, Sq), -math.inf, device=q.device)
     l = torch.zeros((B, Kv, rep, Sq), device=q.device)
     acc = torch.zeros((B, Sq, Kv, rep, Dh), device=q.device)
+    body = functools.partial(_chunk_math, causal=causal, window=window,
+                             softcap=softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        body = functools.partial(checkpoint, body, use_reentrant=False)
     for c0 in range(0, Sk, kv_chunk):
-        kci = k[:, c0:c0 + kv_chunk].float()
-        vci = v[:, c0:c0 + kv_chunk].float()
-        pci = pos_k[:, c0:c0 + kv_chunk]
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kci)
-        s = _softcap(s, softcap)
-        s = s + _mask_bias(pos_q, pci, causal, window)[:, None, None]
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        # guard fully-masked rows (m_new = -inf): exp(-inf - -inf) -> nan
-        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
-        p = torch.exp(s - m_safe[..., None])
-        corr = torch.exp(torch.where(torch.isneginf(m), m_safe, m) - m_safe)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bgrqk,bkgd->bqgrd", p, vci)
-        acc = acc * corr.permute(0, 3, 1, 2)[..., None] + pv
-        m = m_new
+        m, l, acc = body(qg, pos_q, k[:, c0:c0 + kv_chunk],
+                         v[:, c0:c0 + kv_chunk], pos_k[:, c0:c0 + kv_chunk],
+                         m, l, acc)
     l = torch.clamp(l, min=1e-20).permute(0, 3, 1, 2)[..., None]
     return (acc / l).reshape(B, Sq, H, Dh).to(q.dtype)
 

@@ -1,16 +1,18 @@
 """The port of ``models/model.py``: the padded vocab, the token embedding
 and the (tied) output head, which the paged serving engine uses; the
 static generation path (``init_cache`` / ``prefill`` / ``decode_step``)
-for the dense family (qwen3) and the ssm family (mamba2), which the static
-serving discipline uses; and the training forward and loss (``loss_fn``)
-for the same two families. The parameter trees are
+for the dense family (qwen3, gemma2, chatglm3, codeqwen), the moe family
+(mixtral, kimi; the dense layers with ``models.moe.moe_block`` in place
+of the MLP) and the ssm family (mamba2), which the static serving
+discipline uses; and the training forward and loss (``loss_fn``, with
+the moe aux losses) for the same three families. The parameter trees are
 ``models.params.init_params``.
 
 The layer stack is a Python loop over the layers of the stacked
 ``(L, ...)`` layer tree (each leaf ``unbind`` once) where the reference
 runs ``lax.scan``; the caches come back stacked on L as there.
 ``use_kernel`` picks the hand-written kernel of each family's prefill: the
-flash-attention kernel for every dense layer's attention, the SSD
+flash-attention kernel for every dense or moe layer's attention, the SSD
 intra-chunk kernel for every mamba2 layer. The loss runs the plain paths
 under autograd whatever ``use_kernel`` says: neither kernel has a
 backward. The other families are not ported yet: their entry points raise.
@@ -30,6 +32,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels.flash_attention import flash_mha
 from . import ssm as ssm_lib
+from .moe import moe_block
 from .layers import (attention, attn_out, attn_project_qkv,
                      decode_attention_block, mlp_block, rmsnorm,
                      self_attention_block)
@@ -85,11 +88,18 @@ class Model:
         return logits
 
     def _static_family(self, what: str) -> None:
-        if self.cfg.family not in ("dense", "ssm"):
+        if self.cfg.family not in ("dense", "moe", "ssm"):
             raise NotImplementedError(
                 f"Model.{what}: family {self.cfg.family!r} is not ported "
-                f"yet (the port's static path and loss serve the dense and "
-                f"ssm families)")
+                f"yet (the port's static path and loss serve the dense, moe "
+                f"and ssm families)")
+
+    def _ffn(self, h: torch.Tensor, lp):
+        """The layer's feed-forward: the moe block (with its aux losses)
+        where the config has experts, else the MLP (aux None)."""
+        if self.cfg.moe is not None:
+            return moe_block(h, lp["moe"], self.cfg)
+        return mlp_block(h, lp["mlp"], self.cfg), None
 
     def _window_array(self) -> List[int]:
         """Each layer's attention window; INF_WINDOW where there is none,
@@ -113,14 +123,14 @@ class Model:
 
     def init_cache(self, batch: int, seq_len: int, device=None
                    ) -> Dict[str, Any]:
-        """Zeroed decode cache (reference ``init_cache``): the dense family's
-        K/V of ``cache_len(seq_len)`` slots a layer with ``pos = -1`` (empty)
-        in every slot; the ssm family's states (``seq_len`` unused).
-        ``device=None`` means the card."""
+        """Zeroed decode cache (reference ``init_cache``): the dense and moe
+        families' K/V of ``cache_len(seq_len)`` slots a layer with
+        ``pos = -1`` (empty) in every slot; the ssm family's states
+        (``seq_len`` unused). ``device=None`` means the card."""
         self._static_family("init_cache")
         dev = resolve_device(device)
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family != "ssm":
             L, cl = cfg.n_layers, self.cache_len(seq_len)
             shape = (L, batch, cl, cfg.n_kv_heads, cfg.head_dim)
             return {"attn": {
@@ -142,8 +152,9 @@ class Model:
     # -- prefill / decode -------------------------------------------------------
     def _dense_prefill(self, params, x: torch.Tensor, kv_chunk: int,
                        extra_cache: int):
-        """The dense layers and the final norm over x (B, S, D), positions
-        ``arange(S)`` in every row. Returns (x, the K/V cache)."""
+        """The dense (or moe) layers and the final norm over x (B, S, D),
+        positions ``arange(S)`` in every row. Returns (x, the K/V
+        cache)."""
         cfg = self.cfg
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -166,7 +177,7 @@ class Model:
                               scale=cfg.attn_logit_scale, kv_chunk=kv_chunk)
             x = x + attn_out(o, lp["attn"])
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
-            x = x + mlp_block(h, lp["mlp"], cfg)
+            x = x + self._ffn(h, lp)[0]
             kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         attn_cache = {n: torch.stack([c[n] for c in kvs])
@@ -174,8 +185,8 @@ class Model:
         return x, _pad_kv(attn_cache, extra_cache, cfg)
 
     def _dense_decode(self, params, cache, x: torch.Tensor, cur: int):
-        """One decode step of the dense layers from ``cache``. Returns
-        (x after the final norm, the new K/V cache)."""
+        """One decode step of the dense (or moe) layers from ``cache``.
+        Returns (x after the final norm, the new K/V cache)."""
         cfg = self.cfg
         new = []
         for lp, lc, win in zip(
@@ -187,7 +198,7 @@ class Model:
                                               cur=cur, window=win)
             x = x + h
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
-            x = x + mlp_block(h, lp["mlp"], cfg)
+            x = x + self._ffn(h, lp)[0]
             new.append(new_c)
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         return x, {n: torch.stack([c[n] for c in new])
@@ -196,26 +207,31 @@ class Model:
     def _decoder_stack(self, params, x: torch.Tensor,
                        positions: torch.Tensor, *, remat: str,
                        kv_chunk: int):
-        """The training forward of the dense layers and the final norm over
-        x (B, S, D), on the plain attention path. Returns (x, the moe aux
-        losses: zeros, the port has no moe yet)."""
+        """The training forward of the dense (or moe) layers and the final
+        norm over x (B, S, D), on the plain attention path. Returns (x,
+        the moe aux losses summed over the layers; zeros without moe)."""
         cfg = self.cfg
 
-        def body(x, lp, win):
+        def body(x, aux_lb, aux_z, lp, win):
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
             x = x + self_attention_block(h, lp["attn"], cfg,
                                          positions=positions, window=win,
                                          kv_chunk=kv_chunk)
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
-            return x + mlp_block(h, lp["mlp"], cfg)
+            h, aux = self._ffn(h, lp)
+            if aux is not None:
+                aux_lb = aux_lb + aux["aux_lb"]
+                aux_z = aux_z + aux["aux_z"]
+            return x + h, aux_lb, aux_z
 
         body = _maybe_remat(body, remat)
+        aux_lb = aux_z = torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
         for lp, win in zip(unstack_layers(params["layers"]),
                            self._window_array()):
-            x = body(x, lp, win)
+            x, aux_lb, aux_z = body(x, aux_lb, aux_z, lp, win)
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, {"aux_lb": zero, "aux_z": zero}
+        return x, {"aux_lb": aux_lb, "aux_z": aux_z}
 
     def _ssm_stack(self, params, x: torch.Tensor, cache=None, *,
                    remat: str = "none", use_kernel: bool = None):
@@ -252,23 +268,30 @@ class Model:
                 remat: str = "none", kv_chunk: int = 1024):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
         ``labels``, (B, S); labels below 0 are masked). Returns (loss,
-        {"loss": loss}). ``remat`` is ``none``, ``dots`` (matmul outputs
-        saved, the rest recomputed) or ``full`` (each layer recomputed in
-        the backward)."""
+        {"loss": loss}); with moe the loss adds ``0.01 * aux_lb / L +
+        1e-3 * aux_z / L`` and the metrics keep the cross-entropy as
+        ``loss`` beside ``aux_lb``, as the reference's. ``remat`` is
+        ``none``, ``dots`` (matmul outputs saved, the rest recomputed) or
+        ``full`` (each layer recomputed in the backward)."""
         self._static_family("loss_fn")
         cfg = self.cfg
         tokens, labels = batch["tokens"], batch["labels"]
         x = self._embed(params, tokens)
-        if cfg.family == "dense":
-            positions = torch.arange(x.shape[1], device=x.device).expand(
-                x.shape[:2])
-            x, _ = self._decoder_stack(params, x, positions, remat=remat,
-                                       kv_chunk=kv_chunk)
-        else:
+        if cfg.family == "ssm":
             x, _ = self._ssm_stack(params, x, remat=remat,
                                    use_kernel=False)
+        else:
+            positions = torch.arange(x.shape[1], device=x.device).expand(
+                x.shape[:2])
+            x, aux = self._decoder_stack(params, x, positions, remat=remat,
+                                         kv_chunk=kv_chunk)
         loss = softmax_xent(self._logits(params, x), labels)
-        return loss, {"loss": loss}
+        metrics = {"loss": loss}
+        if cfg.moe is not None:
+            loss = loss + 0.01 * aux["aux_lb"] / cfg.n_layers \
+                + 1e-3 * aux["aux_z"] / cfg.n_layers
+            metrics["aux_lb"] = aux["aux_lb"]
+        return loss, metrics
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 1024, extra_cache: int = 0):
@@ -282,7 +305,7 @@ class Model:
         """
         self._static_family("prefill")
         x = self._embed(params, batch["tokens"])
-        if self.cfg.family == "dense":
+        if self.cfg.family != "ssm":
             x, cache = self._dense_prefill(params, x, kv_chunk, extra_cache)
             return self._logits(params, x[:, -1:]), {"attn": cache}
         x, ssm_cache = self._ssm_stack(params, x)
@@ -295,7 +318,7 @@ class Model:
         self._static_family("decode_step")
         x = self._embed(params, tokens, pos0=int(cur))
         new_cache = dict(cache)
-        if self.cfg.family == "dense":
+        if self.cfg.family != "ssm":
             x, new_cache["attn"] = self._dense_decode(params, cache, x,
                                                       int(cur))
         else:

@@ -10,11 +10,13 @@ transposed layouts, so one set of values runs on both sides.
   and ``params_to_numpy`` carries a tree of tensors back.
 * ``tree_map`` / ``tree_leaves`` walk such trees (and the optimizers'
   state trees) in the order of JAX's dict flattening: sorted keys.
-* ``init_params`` is the port's own initializer, for the dense and the
-  ssm families. It follows the reference's rule: normal times
+* ``init_params`` is the port's own initializer, for the dense, the moe
+  and the ssm families. It follows the reference's rule: normal times
   ``1/sqrt(shape[-2])`` (so ``wq``'s scale comes from ``H``, not ``D``),
   the embedding at scale 1.0, norms at zero; mamba's ``conv_w`` at scale
-  0.5, ``A_log`` and ``dt_bias`` at zero, ``D`` at one. Its numbers differ
+  0.5, ``A_log`` and ``dt_bias`` at zero, ``D`` at one. The moe family's
+  layers hold ``moe`` (router, experts and shared experts) where the
+  dense family's hold ``mlp``. Its numbers differ
   from the reference's (another generator); only the rule and the tree
   are the same.
 """
@@ -73,7 +75,7 @@ def _normal(shape: Sequence[int], g: torch.Generator, device,
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         scale = 1.0 / math.sqrt(fan_in)
     return torch.randn(tuple(shape), generator=g, device=device,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32).mul_(scale)
 
 
 def _zeros(shape: Sequence[int], device) -> torch.Tensor:
@@ -101,6 +103,21 @@ def _init_mlp(cfg: ArchConfig, L: int, g, device) -> Dict[str, torch.Tensor]:
     return p
 
 
+def _init_moe(cfg: ArchConfig, L: int, g, device) -> Dict[str, torch.Tensor]:
+    m = cfg.moe
+    D, E, F = cfg.d_model, m.n_experts, m.d_ff_expert
+    p = {"router": _normal((L, D, E), g, device),
+         "w_gate": _normal((L, E, D, F), g, device),
+         "w_up": _normal((L, E, D, F), g, device),
+         "w_down": _normal((L, E, F, D), g, device)}
+    if m.n_shared_experts:
+        fs = F * m.n_shared_experts
+        p["ws_gate"] = _normal((L, D, fs), g, device)
+        p["ws_up"] = _normal((L, D, fs), g, device)
+        p["ws_down"] = _normal((L, fs, D), g, device)
+    return p
+
+
 def _init_mamba(cfg: ArchConfig, L: int, g, device
                 ) -> Dict[str, torch.Tensor]:
     s = cfg.ssm
@@ -119,10 +136,10 @@ def _init_mamba(cfg: ArchConfig, L: int, g, device
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device) -> Dict[str, Any]:
-    """The fp32 parameter tree of a dense or ssm model (reference
+    """The fp32 parameter tree of a dense, moe or ssm model (reference
     ``Model._init_tree`` for those families). ``generator`` must live on
     ``device``."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"init_params: family {cfg.family!r} is "
                                   f"not ported yet")
     L, D, V = cfg.n_layers, cfg.d_model, padded_vocab(cfg.vocab)
@@ -138,8 +155,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         return p
     p["layers"] = {"ln1": _zeros((L, D), device),
                    "ln2": _zeros((L, D), device),
-                   "attn": _init_attn(cfg, L, generator, device),
-                   "mlp": _init_mlp(cfg, L, generator, device)}
+                   "attn": _init_attn(cfg, L, generator, device)}
+    if cfg.moe is not None:
+        p["layers"]["moe"] = _init_moe(cfg, L, generator, device)
+    else:
+        p["layers"]["mlp"] = _init_mlp(cfg, L, generator, device)
     return p
 
 

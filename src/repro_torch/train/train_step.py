@@ -4,7 +4,9 @@
 ``train_step(state, batch) -> (state, metrics)`` runs:
   * microbatch gradient accumulation (a loop over ``microbatches`` row
     splits of the batch: the gradients summed then divided, the loss
-    averaged, the metrics of the last microbatch);
+    averaged, the metrics of the last microbatch); a batch whose rows
+    ``microbatches`` does not divide raises a ``ValueError``, as the
+    reference's reshape into ``(mb, b // mb, ...)`` refuses it;
   * the remat policy of ``Model.loss_fn`` on every layer;
   * optional int8 + error-feedback gradient compression;
   * the AdamW or Adafactor update, which writes the new parameters into
@@ -63,6 +65,9 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
             loss, metrics, grads = value_and_grad(params, batch)
         else:
             b = batch["tokens"].shape[0]
+            if b % mb:
+                raise ValueError(f"microbatches={mb} does not divide the "
+                                 f"batch size {b}")
             grads, loss = None, torch.zeros((), dtype=torch.float32,
                                             device=batch["tokens"].device)
             for i in range(mb):

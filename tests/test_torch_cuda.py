@@ -1,9 +1,10 @@
 """Tests of the port that need the card: each CUDA kernel (paged
 attention, the SSD intra-chunk terms, flash attention) against its plain
 version, the tokens of the paths they carry (the paged engine, static
-mamba2 and qwen3 serving) with the kernel against the plain path, and
-the train step on the card against the same step on the CPU, whose loss
-and backward launch no kernel. Marked ``cuda``; they skip where there is
+mamba2, qwen3, gemma2 and mixtral serving) with the kernel against the
+plain path, one full-width mixtral moe layer on the card against the
+CPU, and the train step on the card against the same step on the CPU,
+whose loss and backward launch no kernel. Marked ``cuda``; they skip where there is
 no card. Run them on a machine with one:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
@@ -40,6 +41,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     _split_plan, paged_attention, paged_attention_plain)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     _block_plan, ssd_intra, ssd_intra_plain)
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import (init_params,  # noqa: E402
                                        tree_leaves, tree_map)
@@ -104,9 +106,14 @@ def _case(seed, s_n, h, kv, dh, page, n_pages_pool, ctx_lens, device):
           ctx_lens=[64, 600, 129]), dict(softcap=50.0)),
     (dict(s_n=5, h=32, kv=8, dh=128, page=16, n_pages_pool=80,
           ctx_lens=[0, 300, 0, 17, 0]), {}),
+    (dict(s_n=4, h=32, kv=2, dh=128, page=16, n_pages_pool=257,
+          ctx_lens=[0, 17, 700, 1023]), {}),
+    (dict(s_n=4, h=32, kv=32, dh=128, page=16, n_pages_pool=257,
+          ctx_lens=[0, 17, 700, 1023]), {}),
 ], ids=["gqa4-4", "gqa4-2", "gqa8-1", "ragged", "softcap", "full_width",
         "page12", "page32", "many_splits", "split_edges", "page256",
-        "page64_head_dim_256", "inactive_lanes"])
+        "page64_head_dim_256", "inactive_lanes", "chatglm3_rep16",
+        "codeqwen_rep1"])
 def test_kernel_matches_plain(cuda, shape, kw):
     case = _case(0, device=cuda, **shape)
     before = paged_attention.launches
@@ -295,11 +302,12 @@ def _mha_case(seed, b, sq, sk, h, kv, dh, device):
     ((2, 256, 256, 16, 8, 256), {}),                 # gemma2_9b's heads
     ((2, 200, 200, 4, 4, 128), {}),                  # one head a kv head
     ((1, 150, 150, 6, 2, 50), dict(window=40)),      # 4-byte copies, rep 3
+    ((1, 4352, 4352, 16, 8, 256), dict(window=4096, softcap=50.0)),
 ], ids=["mha", "gqa", "mqa_sk_gt_sq", "unaligned", "noncausal", "window",
         "softcap", "window_softcap", "noncausal_unaligned", "sq_gt_sk",
         "sq_gt_sk_window", "inf_window", "qwen3_full_width",
         "head_dim_256_window_softcap", "gemma2_heads_head_dim_256", "rep_1",
-        "head_dim_not_multiple_of_4"])
+        "head_dim_not_multiple_of_4", "gemma2_layer_past_its_window"])
 def test_flash_kernel_matches_plain(cuda, shape, kw):
     q, k, v = _mha_case(0, *shape, device=cuda)
     before = flash_mha.launches
@@ -353,6 +361,62 @@ def test_dense_static_serving_tokens_kernel_vs_plain(cuda):
         outs.append(server.h_serve_batch(dict(args), env))
         assert flash_mha.launches == (cfg.n_layers if use_kernel else 0)
     assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "mixtral_8x7b"])
+def test_windowed_static_serving_tokens_kernel_vs_plain(cuda, arch):
+    """Smoke gemma2 (local/global windows) and mixtral (every layer
+    windowed, moe): a prompt longer than the smoke window of 32, so that
+    the kernel's window masks keys in the prefill."""
+    cfg = smoke(get_config(arch))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(6)
+    args = {"prompts": [rng.integers(1, cfg.vocab, size=n).tolist()
+                        for n in (5, 70, 17)], "max_new_tokens": 6}
+    outs = []
+    for use_kernel in (True, False):
+        env = server.ServeEnv(model=Model(cfg, use_kernel=use_kernel),
+                              params=params, device=cuda)
+        flash_mha.launches = 0
+        outs.append(server.h_serve_batch(dict(args), env))
+        assert flash_mha.launches == (cfg.n_layers if use_kernel else 0)
+    assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
+
+
+def test_moe_block_card_matches_cpu(cuda):
+    """One mixtral_8x7b moe layer at full width (8 experts of 14336, top
+    2) on random weights and a (2, 512) input: the card's routing and
+    dispatch equal the CPU's, the output within atol 1e-4 x max|CPU| plus
+    rtol 1e-4 (fp32 products over 4096 and 14336 terms in another order),
+    the aux losses within 1e-5."""
+    cfg = get_config("mixtral_8x7b")
+    m = cfg.moe
+    gen = torch.Generator().manual_seed(0)
+    D, E, F = cfg.d_model, m.n_experts, m.d_ff_expert
+    p = {"router": torch.randn((D, E), generator=gen) / D ** 0.5,
+         "w_gate": torch.randn((E, D, F), generator=gen) / D ** 0.5,
+         "w_up": torch.randn((E, D, F), generator=gen) / D ** 0.5,
+         "w_down": torch.randn((E, F, D), generator=gen) / F ** 0.5}
+    x = torch.randn((2, 512, D), generator=gen)
+    n = x.shape[0] * x.shape[1]
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, aux = moe.moe_block(x.to(dev), pd, cfg)
+        top_e = moe.route(x.to(dev).reshape(n, D), pd["router"], m.top_k)[3]
+        keep = moe.dispatch_plan(top_e, E, moe.capacity(
+            n, E, m.top_k, m.capacity_factor))[3]
+        out[str(dev)] = [t.cpu() for t in (y, aux["aux_lb"], aux["aux_z"],
+                                           top_e, keep)]
+        del pd
+    (y, lb, z, e, k), (yc, lbc, zc, ec, kc) = out["cuda"], out["cpu"]
+    assert torch.equal(e, ec) and torch.equal(k, kc)
+    np.testing.assert_allclose(y.numpy(), yc.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(yc.abs().max()),
+                               equal_nan=False)
+    for a, b in ((lb, lbc), (z, zc)):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5)
 
 
 def _train_batch(cfg, device, seed=7):

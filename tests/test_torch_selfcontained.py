@@ -43,7 +43,12 @@ def test_port_modules_exist():
             "repro_torch/train/train_step.py",
             "repro_torch/train/checkpoint.py",
             "repro_torch/train/trainer.py", "repro_torch/core/introspect.py",
-            "repro_torch/core/recovery.py"} <= names
+            "repro_torch/core/recovery.py", "repro_torch/models/moe.py",
+            "repro_torch/configs/gemma2_9b.py",
+            "repro_torch/configs/chatglm3_6b.py",
+            "repro_torch/configs/codeqwen15_7b.py",
+            "repro_torch/configs/mixtral_8x7b.py",
+            "repro_torch/configs/kimi_k2_1t_a32b.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}

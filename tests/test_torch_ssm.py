@@ -413,11 +413,12 @@ def test_prefill_decode_consistency(mamba):
 
 
 def test_other_families_raise_naming_the_family():
-    # the dense family's static path is ported too (test_torch_dense_static)
+    # the dense and moe families' static paths are ported too
+    # (test_torch_dense_static, test_torch_moe)
     model = Model(dataclasses.replace(smoke(get_config("qwen3_4b")),
-                                      family="moe"))
+                                      family="hybrid"))
     for call in (lambda: model.init_cache(1, 4, device="cpu"),
                  lambda: model.prefill({}, {"tokens": None}),
                  lambda: model.decode_step({}, {}, None, 0)):
-        with pytest.raises(NotImplementedError, match="moe"):
+        with pytest.raises(NotImplementedError, match="hybrid"):
             call()

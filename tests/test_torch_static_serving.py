@@ -188,8 +188,10 @@ def test_static_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_static_serving_of_an_unported_family_raises():
-    # the dense family is served too (tests/test_torch_dense_static.py)
-    cfg = dataclasses.replace(smoke(get_config("qwen3_4b")), family="moe")
+    # the dense and moe families are served too
+    # (tests/test_torch_dense_static.py, tests/test_torch_moe.py)
+    cfg = dataclasses.replace(smoke(get_config("qwen3_4b")),
+                              family="hybrid")
     env = server.ServeEnv(model=Model(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
+    with pytest.raises(NotImplementedError, match="hybrid"):
         server.h_serve_batch({"prompts": [[1, 2]], "max_new_tokens": 2}, env)

@@ -1,9 +1,12 @@
 """The port's training path against the reference's, on the CPU: the
-self-attention block, the plain SSD's gradient, ``Model.loss_fn`` and its
-gradients (dense and ssm, remat none / dots / full), the data pipeline,
+self-attention block, the chunked attention's backward memory (each chunk
+recomputed, as the reference's ``jax.checkpoint``) and the loss at 4096
+keys, the plain SSD's gradient, ``Model.loss_fn`` and its gradients
+(dense and ssm, remat none / dots / full), the data pipeline,
 ``params_to_numpy``, N-step trajectories through ``make_train_step``
-(both optimizers, microbatches 1 and 2, compression on and off) and the
-checkpoint cross-restore in both directions.
+(both optimizers, microbatches 1 and 2, compression on and off), a
+microbatch count that does not divide the batch (refused on both sides)
+and the checkpoint cross-restore in both directions.
 
 Inputs and parameters are made with numpy (or by the reference's
 initializer) from a seed and handed to both sides. Both are fp32 and sum
@@ -171,6 +174,98 @@ def test_self_attention_block_matches_reference(window):
         torch.from_numpy(x), params_from_numpy(p, "cpu"), tcfg,
         positions=torch.from_numpy(pos.copy()).long(), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the chunked attention's backward memory
+# ---------------------------------------------------------------------------
+
+def _saved_bytes(fn, q, k, v, pos):
+    """Bytes of the distinct storages that autograd saves for the backward
+    of ``fn`` (each storage counted once, however many views of it are
+    saved), and the gradients of q, k and v."""
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        o = fn(*leaves, pos_q=pos, pos_k=pos, causal=True, kv_chunk=1024)
+    o.square().sum().backward()
+    return sum(saved.values()), [t.grad for t in leaves]
+
+
+def _unchecked_chunks(q, k, v, *, pos_q, pos_k, causal, kv_chunk):
+    """Broken control: the chunk loop without the checkpoint (as the port
+    ran it before), the same ``_chunk_math`` on the same chunks."""
+    B, Sq, H, Dh = q.shape
+    Kv = k.shape[2]
+    rep = H // Kv
+    qg = q.reshape(B, Sq, Kv, rep, Dh).float() / np.sqrt(Dh)
+    m = torch.full((B, Kv, rep, Sq), -np.inf)
+    l = torch.zeros((B, Kv, rep, Sq))
+    acc = torch.zeros((B, Sq, Kv, rep, Dh))
+    for c0 in range(0, k.shape[1], kv_chunk):
+        m, l, acc = tl._chunk_math(
+            qg, pos_q, k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk],
+            pos_k[:, c0:c0 + kv_chunk], m, l, acc, causal=causal,
+            window=None, softcap=None)
+    l = torch.clamp(l, min=1e-20).permute(0, 3, 1, 2)[..., None]
+    return (acc / l).reshape(B, Sq, H, Dh)
+
+
+def test_chunked_attention_saves_one_chunk_for_the_backward():
+    """q (1, 4096, 2, 16), k/v (1, 4096, 1, 16), 1024-key chunks, causal.
+    With each chunk under ``torch.utils.checkpoint`` the backward keeps,
+    per chunk, its inputs and the carried m, l (B, Kv, rep, Sq) and acc
+    (B, Sq, Kv, rep, Dh), and recomputes the chunk's scores. The bound:
+    q, k, v, the scaled q and the positions once; per chunk m, l, acc and
+    its keys, values and positions; and one chunk's scores (B, Kv, rep,
+    Sq, 1024) of slack for what runs outside the chunks: 38.1 MB, where
+    the full score matrix alone is 134.2 MB. The loop without the
+    checkpoint (the broken control) saves every chunk's softmax and must
+    exceed the bound; both give the same gradients to the bit."""
+    rng = np.random.default_rng(9)
+    S, H, Kv, Dh, C = 4096, 2, 1, 16, 1024
+    q = torch.from_numpy(rng.standard_normal((1, S, H, Dh)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, S, Kv, Dh)).astype(
+        np.float32)) for _ in range(2))
+    pos = torch.arange(S)[None]
+    f4, i8 = 4, 8
+    n_chunks = S // C
+    carried = f4 * (2 * Kv * H * S + S * H * Dh)          # m, l, acc
+    chunk_in = 2 * f4 * C * Kv * Dh + i8 * C              # k, v, pos
+    once = f4 * (2 * q.numel() + 2 * k.numel()) + i8 * S  # q, qg, k, v, pos
+    bound = once + n_chunks * (carried + chunk_in) + f4 * H * S * C
+    assert bound == 38_076_416
+    got, grads = _saved_bytes(tl.attention_chunked, q, k, v, pos)
+    assert got <= bound, (got, bound)
+    broken, broken_grads = _saved_bytes(_unchecked_chunks, q, k, v, pos)
+    assert broken > bound, (broken, bound)
+    for g, b in zip(grads, broken_grads):
+        assert torch.equal(g, b)
+
+
+def test_loss_and_grads_at_4096_keys_match_reference():
+    """Smoke qwen3_4b over one row of 4096 tokens: every layer's attention
+    takes the chunked path (4096 keys, above DENSE_ATTN_MAX_KV) on both
+    sides, the port's under the checkpoint. The loss and every gradient
+    at the training tolerances above."""
+    jmodel, tmodel = _models("qwen3_4b")
+    params = _params(jmodel)
+    batch = _batch(tmodel.cfg.vocab, b=1, s=4096, seed=2)
+    assert 4096 > tl.DENSE_ATTN_MAX_KV
+    (jloss, _), jgrads = _jax_value_and_grad(jmodel, "none")(params, batch)
+    tparams = _map(torch.Tensor.requires_grad_,
+                   params_from_numpy(params, "cpu"))
+    loss, _ = tmodel.loss_fn(tparams, _tbatch(batch))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    _close_tree(_map(lambda p: p.grad, tparams), _np(jgrads), grad=True,
+                rtol=1e-4, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +513,28 @@ def test_trajectory_ssm_with_full_remat_matches_reference():
                                     tmodel.cfg.vocab, range(STEPS))
     np.testing.assert_allclose(tl_, jl_, **TRAJ_LOSS_TOL)
     _close_tree(tstate["params"], _np(jstate["params"]), **TRAJ_PARAM_TOL)
+
+
+def test_microbatches_must_divide_the_batch():
+    """Both packages refuse microbatches=3 on a (4, 16) batch: the
+    reference's reshape into (3, 1, 16) raises, the port a ValueError that
+    names both numbers (it dropped the last row before). Two microbatches
+    of the same 4 rows still match the reference."""
+    jmodel, tmodel = _models("qwen3_4b")
+    params = _params(jmodel)
+    batch = _batch(tmodel.cfg.vocab, b=4, s=16)
+    jinit, jstep, tinit, tstep = _step_fns(jmodel, tmodel, "adamw", 3,
+                                           False)
+    with pytest.raises(TypeError, match="cannot reshape"):
+        jstep(jinit(params), batch)
+    with pytest.raises(ValueError, match="microbatches=3 .*batch size 4"):
+        tstep(tinit(params_from_numpy(params, "cpu")), _tbatch(batch))
+    jinit, jstep, tinit, tstep = _step_fns(jmodel, tmodel, "adamw", 2,
+                                           False)
+    _, jm = jstep(jinit(params), batch)
+    _, tm = tstep(tinit(params_from_numpy(params, "cpu")), _tbatch(batch))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                               **TRAJ_LOSS_TOL)
 
 
 # ---------------------------------------------------------------------------
