@@ -13,13 +13,24 @@ code is not 0 and no result line is printed:
    compiled by ``nvcc`` for ``sm_90a`` into ``src/repro_torch/build/``,
    one ``nvcc`` per source, all started together.
 3. kernels — each kernel against its plain PyTorch version on the card,
-   at the CPU tests' shapes and at full model width.
+   at the CPU tests' shapes and at full model width (the SSD kernel also
+   at head dims 96, 128 and 130, past its 64-column blocks).
 4. slice 1 — the governed continuous-batching serving path at the full
    width of ``qwen3_4b`` (36 layers, random fp32 weights from a seeded
    ``torch.Generator``): 8 requests through the LogAct agent, one of them
    from a denylisted tenant; launch counts are zeroed just before and read
-   just after. The same requests are then served on the plain path on the
-   card and the tokens compared. Then the prefill and decode step are
+   just after. The governed kernel run is made three times, with the
+   agent's log on the in-memory bus, in SQLite (group commit on) and in
+   the segmented KV store (both in a temporary directory): the tokens and
+   the paged launch counts must be equal, each durable log is closed and
+   read back by a fresh instance, which must give the entries the agent
+   read and no committed-unexecuted intent, and each run prints its wall,
+   the time inside ``PagedEngine.admit``/``step``, the governance time a
+   ``serve_step`` intent (the rest), the log's entries and bytes, and the
+   calls into the log (appends, reads, tail probes, waits, the seconds
+   inside the bus; for the KV store its directory LISTs). The
+   same requests are then served on the plain path on the card and the
+   tokens compared. Then the prefill and decode step are
    timed on the engine, and paged attention is timed at the main path's
    shape beside its byte/operation bound, its plain version and a PyTorch
    library call.
@@ -59,7 +70,9 @@ code is not 0 and no result line is printed:
    ``STANDARD_RULES``, with a checkpoint at step 4 and a final eval;
    step 4 is restored and steps 5-8 replayed (they must give the first
    run's losses; from cursor 5, the broken control, they must not);
-   then the executor-crash drill on the same env; then one full-width
+   then the executor-crash drill on the same env, its log in SQLite, where
+   a second ``SqliteBus`` on the file must see the agent's one pending
+   ``train_chunk``; then one full-width
    ``mamba2_780m`` step (two SSD chunks of 256) must give a finite grad
    norm, and the reference's ``where(exp)`` order a NaN one. Step time,
    tokens/s, peak memory and checkpoint I/O are printed; the checkpoint
@@ -97,6 +110,8 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -144,6 +159,9 @@ SLICE5_NEW_TOKENS = 8
 GEMMA2_PROMPTS = (4500, 600)
 MIXTRAL_PROMPTS = (4500, 1000)
 MIXTRAL_LAYERS = 8
+# slice 1's governed kernel run is made once on each of these logs: the
+# in-memory bus, SQLite with group commit, and the segmented KV store
+SERVE_BUSES = ("memory", "sqlite", "kv")
 # slice 5's attention weights. init_params' rule (normal / sqrt(fan-in),
 # and wq's fan-in is its head count) gives q and k entries of std
 # sqrt(d_model / heads), so without qk norm these configs' scores
@@ -381,8 +399,54 @@ def make_requests(cfg, rng, n: int = 8):
     return reqs
 
 
-def serve(cfg, params, requests, use_kernel: bool):
-    """Phase 4: one governed run of the serving agent on the card."""
+def _bus_meter(bus):
+    """Counts and times the calls into ``bus`` over a run, through
+    wrappers set on the instance: batches and entries appended, reads,
+    tail probes, waits, the host seconds inside the bus (outermost calls
+    only, so ``append`` over ``append_many`` counts once), and for a
+    ``KvBus`` its ``_refresh`` calls (a directory LIST each, with the
+    fetch of segments it had not seen) and their seconds. Returns the
+    dict the wrappers fill."""
+    meter = dict(appends=0, entries=0, reads=0, tails=0, waits=0,
+                 lists=0, bus_s=0.0, list_s=0.0)
+    depth = threading.local()
+
+    def wrap(name, key):
+        fn = getattr(bus, name)
+
+        def counted(*args, **kw):
+            meter[key] += 1
+            if key == "appends":
+                meter["entries"] += len(args[0])
+            outer = not getattr(depth, "n", 0)
+            depth.n = getattr(depth, "n", 0) + 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth.n -= 1
+                dt = time.perf_counter() - t0
+                if key == "lists":
+                    meter["list_s"] += dt
+                elif outer:
+                    meter["bus_s"] += dt
+        setattr(bus, name, counted)
+
+    for name, key in (("append_many", "appends"), ("read", "reads"),
+                      ("tail", "tails"), ("_wait_for_append", "waits")):
+        wrap(name, key)
+    if hasattr(bus, "_refresh"):
+        wrap("_refresh", "lists")
+    return meter
+
+
+def serve(cfg, params, requests, use_kernel: bool, bus=None):
+    """Phase 4: one governed run of the serving agent on the card, on
+    ``bus`` (a fresh MemoryBus by default). Besides the wall, it reads the
+    time inside ``PagedEngine.admit`` and ``PagedEngine.step`` (each ends
+    in a host read of its tokens), the serve_step intents, what the
+    agent's client reads off the log and the calls into the bus
+    (``_bus_meter``)."""
     import torch
     from repro_torch.core.acl import BusClient
     from repro_torch.core.entries import PayloadType
@@ -394,7 +458,7 @@ def serve(cfg, params, requests, use_kernel: bool):
     agent = build_continuous_serving_agent(
         cfg, max_batch=MAX_BATCH, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
         max_pages_per_seq=MAX_PAGES_PER_SEQ, use_kernel=use_kernel,
-        device="cuda")
+        bus=bus, device="cuda")
     env = agent.executor.env
     env.engine = PagedEngine(cfg, max_batch=env.max_batch,
                              num_pages=env.num_pages,
@@ -402,6 +466,11 @@ def serve(cfg, params, requests, use_kernel: bool):
                              max_pages_per_seq=env.max_pages_per_seq,
                              use_kernel=env.use_kernel, params=params,
                              device=env.device)
+    meter = _bus_meter(agent.bus)
+    model_s = {}
+    for name in ("admit", "step"):
+        setattr(env.engine, name,
+                _timed(getattr(env.engine, name), model_s, name))
     voter = RuleVoter(BusClient(agent.bus, "v-rule", "voter"),
                       rules=SERVE_ADMISSION_RULES)
     agent.add_voter(voter, from_tail=False)
@@ -416,14 +485,18 @@ def serve(cfg, params, requests, use_kernel: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
+    calls = dict(meter)
     log = agent.external_client("smoke", "admin").read(0)
     admit_steps = [e.body["value"]["step"] for e in log
                    if e.type == PayloadType.RESULT
                    and e.body["value"].get("admitted")]
     n_aborts = sum(e.type == PayloadType.ABORT for e in log)
+    n_intents = sum(e.type == PayloadType.INTENT
+                    and e.body["kind"] == "serve_step" for e in log)
     return dict(planner=agent.driver.planner, engine=env.engine, wall=wall,
                 launches=launches, admit_steps=admit_steps,
-                n_aborts=n_aborts)
+                n_aborts=n_aborts, log=log, n_intents=n_intents,
+                calls=calls, model_s=sum(sum(v) for v in model_s.values()))
 
 
 def _ssd_case(rng, b, nc, q, h, p, g, n, a=None):
@@ -472,6 +545,13 @@ def check_ssd_intra():
          False),
         ("P 6, N 10 (4-byte copies)", dict(b=1, nc=2, q=70, h=4, p=6, g=2,
                                            n=10), None, False),
+        # head dims past the kernel's 64-column blocks
+        ("P 128, A=-1", dict(b=2, nc=2, q=256, h=8, p=128, g=1, n=128),
+         -1.0, True),
+        ("P 96, G=2 of 6", dict(b=1, nc=3, q=160, h=6, p=96, g=2, n=64),
+         None, False),
+        ("P 130 (4-byte copies)", dict(b=1, nc=2, q=70, h=2, p=130, g=1,
+                                       n=10), None, False),
     ]
     worst = 0.0
     for label, shape, a, full in cases:
@@ -1200,6 +1280,7 @@ def build_kernels():
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA card; the port's smoke run needs one")
@@ -1273,6 +1354,8 @@ def main() -> None:
                 "replaces": "src/repro/kernels/flash_attention.py:26",
                 "launches": launches["flash_attention"],
                 "max_abs_err": flash_err, **flash["timing"]}]
+    print(f"[wall] {time.perf_counter() - t_start:.1f} s from the start of "
+          f"main to the result lines")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1308,38 +1391,31 @@ def slice_qwen3(smi):
         for r in requests))
 
     ssd_intra.launches = flash_mha.launches = 0
-    run = serve(cfg, params, requests, use_kernel=True)
-    pl, eng = run["planner"], run["engine"]
-    want_launches = eng.n_steps * cfg.n_layers
-    print(f"  kernel run: served {sorted(pl.outputs)} rejected "
-          f"{pl.rejected} aborts {run['n_aborts']} admit steps "
-          f"{run['admit_steps']} decode steps {eng.n_steps} "
-          f"paged_attention launches {run['launches']} (want "
-          f"{eng.n_steps} x {cfg.n_layers} = {want_launches}) "
-          f"wall {run['wall']:.3f} s")
-    if set(pl.outputs) != set(served) or pl.rejected != blocked:
-        raise AssertionError("served/rejected sets differ from the plan")
-    if run["n_aborts"] == 0:
-        raise AssertionError("the veto left no Abort entry on the log")
-    if len(set(run["admit_steps"])) < 2:
-        raise AssertionError("admissions were not staggered over steps")
-    if run["launches"] != want_launches or want_launches == 0:
-        raise AssertionError("the decode steps did not all go through the "
-                             "kernel")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bus-") as tmp:
+        for backend in SERVE_BUSES:
+            runs[backend] = _serve_on_bus(cfg, params, requests, served,
+                                          blocked, backend, tmp, smi)
+    run = runs["memory"]
+    pl = run["planner"]
+    for backend, other in runs.items():
+        if other["planner"].outputs != pl.outputs \
+                or other["launches"] != run["launches"]:
+            raise AssertionError(f"the governed run on {backend} differs "
+                                 f"from the one on memory in its tokens or "
+                                 f"its paged launches")
     if ssd_intra.launches or flash_mha.launches:
         raise AssertionError("the continuous path launched the SSD or the "
                              "flash kernel (its prefill runs the plain "
                              "attention, as the reference's does)")
-    for rid, toks in pl.outputs.items():
-        if len(toks) != served[rid]["max_new_tokens"] or not all(
-                0 <= t < cfg.vocab for t in toks):
-            raise AssertionError(f"{rid}: bad tokens {toks}")
-    n_tokens = sum(len(t) for t in pl.outputs.values())
-    print(f"  governed kernel run: {n_tokens} tokens in {run['wall']:.3f} s "
-          f"= {n_tokens / run['wall']:.2f} tokens/s end to end "
-          f"(prefill + decode + governance) on {smi}")
+    print(f"  the governed kernel runs on {', '.join(SERVE_BUSES)}: equal "
+          f"tokens for all {len(pl.outputs)} requests and equal paged "
+          f"launches ({run['launches']}); the runs on the durable logs "
+          f"(engine, agent, read-back) took "
+          f"{sum(r['secs'] for b, r in runs.items() if b != 'memory'):.2f} "
+          f"s, the one on memory {run['secs']:.2f} s")
     launches = run["launches"]
-    del eng, run["engine"]
+    del runs, run
 
     ref = serve(cfg, params, requests, use_kernel=False)
     if ref["launches"] != 0:
@@ -1384,6 +1460,112 @@ def slice_qwen3(smi):
     t.pop("ctx")
     t.pop("blocks")
     return {"launches": launches, "timing": t, "cfg": cfg, "params": params}
+
+
+def _row(entry):
+    return (entry.position, entry.realtime_ts, entry.type.value, entry.body)
+
+
+def _unsched(row):
+    """``row`` without the ``_sched`` flags that the continuous planner
+    sets on the driver's mail dicts after the driver logged them in an
+    InfIn context: a bus that serves back the objects it was given (the
+    memory bus, the KV store's segment cache) shows them to the agent,
+    while the durable copy holds the body as it was appended."""
+    if row[2] != "InfIn":
+        return row
+    body = json.loads(json.dumps(row[3]))
+    for m in body["context"]["mail"]:
+        m.pop("_sched", None)
+    return row[:3] + (body,)
+
+
+def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
+                  smi):
+    """Slice 1's governed kernel run with the agent's log on ``backend``
+    (``memory``, or ``sqlite`` with group commit and ``kv`` in ``tmp``).
+    Checks the run as the plan says; a durable log is closed and read back
+    through a fresh instance, which must give the entries the agent's
+    client read and no committed-unexecuted intent. Prints the wall, the
+    time inside the engine, the governance time a serve_step intent, the
+    log's entries and bytes, and the calls into the log."""
+    import torch
+    from repro_torch.core import committed_unexecuted, make_bus
+    t0 = time.perf_counter()
+    path = None if backend == "memory" else os.path.join(
+        tmp, f"serve-{backend}" + (".db" if backend == "sqlite" else ""))
+    bus = make_bus(backend, path)
+    run = serve(cfg, params, requests, use_kernel=True, bus=bus)
+    pl, eng = run["planner"], run["engine"]
+    want_launches = eng.n_steps * cfg.n_layers
+    print(f"  kernel run on {backend}: served {sorted(pl.outputs)} rejected "
+          f"{pl.rejected} aborts {run['n_aborts']} admit steps "
+          f"{run['admit_steps']} decode steps {eng.n_steps} "
+          f"paged_attention launches {run['launches']} (want "
+          f"{eng.n_steps} x {cfg.n_layers} = {want_launches}) "
+          f"wall {run['wall']:.3f} s")
+    if set(pl.outputs) != set(served) or pl.rejected != blocked:
+        raise AssertionError("served/rejected sets differ from the plan")
+    if run["n_aborts"] == 0:
+        raise AssertionError("the veto left no Abort entry on the log")
+    if len(set(run["admit_steps"])) < 2:
+        raise AssertionError("admissions were not staggered over steps")
+    if run["launches"] != want_launches or want_launches == 0:
+        raise AssertionError("the decode steps did not all go through the "
+                             "kernel")
+    for rid, toks in pl.outputs.items():
+        if len(toks) != served[rid]["max_new_tokens"] or not all(
+                0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"{rid}: bad tokens {toks}")
+    n_tokens = sum(len(t) for t in pl.outputs.values())
+    log = run.pop("log")
+    on_disk = "in memory"
+    if path is not None:
+        bus.close()
+        files = [path] if backend == "sqlite" else [
+            os.path.join(path, f) for f in os.listdir(path)]
+        files += [path + s for s in ("-wal", "-shm")
+                  if backend == "sqlite" and os.path.exists(path + s)]
+        on_disk = f"{sum(os.path.getsize(f) for f in files)} B on disk"
+        fresh = make_bus(backend, path)
+        back = [_row(e) for e in fresh.read(0)]
+        seen = [_row(e) for e in log]
+        flagged = sum(a != b for a, b in zip(back, seen))
+        if len(back) != len(seen) or any(
+                _unsched(a) != _unsched(b) for a, b in zip(back, seen)):
+            raise AssertionError(f"the {backend} log read back from disk "
+                                 f"differs from what the agent read")
+        if committed_unexecuted(fresh):
+            raise AssertionError(f"the {backend} log holds a committed, "
+                                 f"unexecuted intent")
+        fresh.close()
+    gov_s = run["wall"] - run["model_s"]
+    print(f"  governed kernel run on {backend}: {n_tokens} tokens in "
+          f"{run['wall']:.3f} s = {n_tokens / run['wall']:.2f} tokens/s end "
+          f"to end; inside PagedEngine.admit/step {run['model_s']:.3f} s; "
+          f"governance {gov_s:.3f} s = {1e3 * gov_s / run['n_intents']:.3f} "
+          f"ms a serve_step intent ({run['n_intents']} intents); log "
+          f"{len(log)} entries, {on_disk}"
+          + ("" if path is None else "; read back from disk by a fresh "
+             f"instance: equal entry for entry ({flagged} InfIn entries "
+             "of the agent's view hold the planner's later _sched flags, "
+             "which the durable copy does not), no committed-unexecuted "
+             "intent")
+          + f" | on {smi}")
+    c = run["calls"]
+    print(f"  calls into the {backend} log over the run: {c['appends']} "
+          f"appends ({c['entries']} entries), {c['reads']} reads, "
+          f"{c['tails']} tail probes, {c['waits']} waits; inside the bus "
+          f"{c['bus_s']:.3f} s = {100 * c['bus_s'] / gov_s:.1f}% of the "
+          f"governance time"
+          + ("" if backend != "kv" else f", of which {c['list_s']:.3f} s "
+             f"in {c['lists']} _refresh calls (a directory LIST each, with "
+             f"the fetch of segments not seen before)")
+          + f" | on {smi}")
+    del eng, run["engine"]
+    torch.cuda.empty_cache()
+    run["secs"] = time.perf_counter() - t0
+    return run
 
 
 def time_continuous(cfg, params, served, smi):
@@ -1581,7 +1763,7 @@ def train_governed(smi, root):
     executor-crash drill on the same env."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.core import (Executor, MemoryBus, committed_unexecuted,
+    from repro_torch.core import (Executor, SqliteBus, committed_unexecuted,
                                   summarize_bus, trace_intents)
     from repro_torch.core.acl import BusClient
     from repro_torch.data.pipeline import DataConfig
@@ -1686,10 +1868,13 @@ def train_governed(smi, root):
              f"{TRAIN_DATA['seq_len']})", [one_step], 1)
 
     # the crash drill of tests/test_recovery.py on the same env: fresh
-    # weights, a new bus, no voter
+    # weights, no voter, the agent's log in SQLite in the slice's root; a
+    # second SqliteBus on the same file, as a standby process would open
+    # it, must see the same pending train_chunk as the agent's bus
     env.state, env.step, env.data_cursor = None, 0, 0
     torch.cuda.empty_cache()
-    bus = MemoryBus()
+    db = os.path.join(root, "drill.db")
+    bus = SqliteBus(db)
     agent = build_training_agent(env, total_steps=TRAIN_STEPS, bus=bus,
                                  steps_per_intention=TRAIN_CHUNK,
                                  ckpt_every=100)
@@ -1701,9 +1886,17 @@ def train_governed(smi, root):
     except InjectedCrash:
         pass
     pend = committed_unexecuted(bus)
+    standby = SqliteBus(db)
+    seen = committed_unexecuted(standby)
+    standby.close()
+    print(f"    crash drill on a SqliteBus: pending {pend}; a second "
+          f"SqliteBus on the file sees {seen}")
     if [p["kind"] for p in pend] != ["train_chunk"] or env.step != 6:
         raise AssertionError(f"after the crash: pending {pend}, step "
                              f"{env.step}")
+    if seen != pend:
+        raise AssertionError("a second reader of the SQLite log sees "
+                             "another pending set than the agent's bus")
     agent.executor = Executor(BusClient(bus, "executor-2", "executor"),
                               env=env, handlers=TRAIN_HANDLERS,
                               announce_reboot=True)
@@ -1721,6 +1914,7 @@ def train_governed(smi, root):
     if probes != ["commit"] or env.step != TRAIN_STEPS \
             or any(b <= a for a, b in zip(starts, starts[1:])):
         raise AssertionError("the crash drill did not roll forward once")
+    bus.close()
 
 
 def _ssd_intra_reference_order(x, dt, a, b, c):
@@ -1786,7 +1980,6 @@ def slice_training(smi):
     """Phase 7: governed training of full-width qwen3_4b, its checkpoint,
     restore, replay and crash drill, the card against the CPU, and one
     full-width mamba2_780m step; no serving kernel may launch."""
-    import tempfile
     import torch
     print(f"[slice 4] training (fp32, TF32 off) on {smi}")
     t0 = time.perf_counter()

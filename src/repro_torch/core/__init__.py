@@ -1,11 +1,12 @@
-"""LogAct core, the port's copy: typed shared log (AgentBus, in-memory
-backend) + deconstructed agent state machine (Driver / Voter / Decider /
-Executor). Pure Python; kept as a local copy so that ``repro_torch``
-imports nothing of the JAX package."""
+"""LogAct core, the port's copy: typed shared log (AgentBus) +
+deconstructed agent state machine (Driver / Voter / Decider / Executor).
+Pure Python; kept as a local copy so that ``repro_torch`` imports nothing
+of the JAX package."""
 from . import entries
 from .acl import AclError, BusClient, Permissions, ROLES
 from .agent import LogActAgent
-from .bus import AgentBus, MemoryBus, TrimmedError, make_bus
+from .bus import (AgentBus, KvBus, MemoryBus, SqliteBus, TrimmedError,
+                  make_bus)
 from .decider import Decider
 from .driver import Driver, Planner, ScriptPlanner
 from .entries import Entry, Payload, PayloadType
@@ -21,7 +22,8 @@ from .voter import (RuleVoter, StatVoter, Voter, VoteDecision,
 
 __all__ = [
     "entries", "AclError", "BusClient", "Permissions", "ROLES",
-    "LogActAgent", "AgentBus", "MemoryBus", "TrimmedError", "make_bus",
+    "LogActAgent", "AgentBus", "KvBus", "MemoryBus", "SqliteBus",
+    "TrimmedError", "make_bus",
     "Decider", "Driver", "Planner", "ScriptPlanner", "Entry", "Payload",
     "PayloadType", "Executor", "health_check", "summarize_bus",
     "trace_intents", "BusObserver", "TRACE_TYPES", "CheckpointCoordinator",

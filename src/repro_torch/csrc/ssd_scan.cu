@@ -10,6 +10,14 @@
 // (head h reads group h / (H/G)); out y (B,NC,Q,H,P), states (B,NC,H,P,N),
 // decay (B,NC,H). B and NC are flattened into one index here.
 //
+// Head dims of any size: every output's head-dim column p depends on x's
+// column p alone, and the decay on no column, so a block covers at most
+// kT = 64 columns [p0, p0 + 64) of x, y and the states' rows, reading x
+// and writing y in place at their row stride H * P (nothing is copied).
+// The head-dim blocks of one piece of work are adjacent in the grid, so
+// they form the same S = C B^T tiles from the same C and B in L2; only the
+// first writes the decay.
+//
 // The upper triangle (u > t) is never formed: exp(cs_t - cs_u) there can
 // be inf in fp32 (cs falls by ~0.7 a token at A = -1), and inf * 0 would be
 // NaN. Those terms are skipped, so they are exactly 0, as the reference's
@@ -66,7 +74,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kR = 2;           // key tiles whose S^T a y-block holds
 constexpr int kNC = 32;         // columns of N in a C/B chunk
 constexpr int kCS = kNC + 4;    // row stride of the C/B chunks
-constexpr int kWS = kT + 4;     // row stride of W^T and x tiles (P <= 64)
+constexpr int kWS = kT + 4;     // row stride of W^T and x tiles (64 columns)
 constexpr int kSR = 32;         // rows a state-block step stages
 constexpr int kSN = 128;        // columns of N a state pass covers
 constexpr int kBS = kSN + 4;    // row stride of the state block's B tile
@@ -203,15 +211,16 @@ __device__ __forceinline__ void scale_by_e(float acc[4][4], const float* cs,
   }
 }
 
-// y rows [t0, t0 + 64) of heads h0 .. h0 + nh - 1 (group g) of one chunk
+// y rows [t0, t0 + 64) x head-dim columns [p0, p0 + pw) of heads h0 ..
+// h0 + nh - 1 (group g) of one chunk
 __device__ void y_block(const float* __restrict__ x,
                         const float* __restrict__ dt,
                         const float* __restrict__ a,
                         const float* __restrict__ b,
                         const float* __restrict__ c, float* __restrict__ y,
                         size_t bc, int qt, int g, int h0, int nh, int Q,
-                        int H, int P, int G, int N, int ld, bool vec,
-                        float* smem) {
+                        int H, int P, int p0, int pw, int G, int N, int ld,
+                        bool vec, float* smem) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wy = warp >> 1, wx = warp & 1, ly = lane >> 3, lx = lane & 7;
   const int t0 = qt * kT;
@@ -231,13 +240,13 @@ __device__ void y_block(const float* __restrict__ x,
   const size_t gN = (size_t)G * N, hP = (size_t)H * P;
   const float* c_bc = c + bc * Q * gN + (size_t)g * N;
   const float* b_bc = b + bc * Q * gN + (size_t)g * N;
-  const float* x_bc = x + bc * Q * hP;
-  float* y_bc = y + bc * Q * hP;
+  const float* x_bc = x + bc * Q * hP + p0;
+  float* y_bc = y + bc * Q * hP + p0;
   const int nch = (N + kNC - 1) / kNC;
   // S tile: rows 16 wy + ly + 4 i, columns 32 wx + lx + 8 j
   // W x tile: rows 4 ty + i, columns 4 tx + j
   const int ty = 4 * wy + ly, tx = 8 * wx + lx;
-  const int px = vec ? ((P + 3) & ~3) : P;  // x columns staged
+  const int px = vec ? ((pw + 3) & ~3) : pw;  // x columns staged
 
   for (int g0 = 0; g0 <= qt; g0 += kR) {
     const int nr = min(kR, qt + 1 - g0);
@@ -307,7 +316,8 @@ __device__ void y_block(const float* __restrict__ x,
     auto stage_x = [&](int step) {
       const int jh = step / nr, kt = g0 + step % nr;
       stage(w_s + (1 + (step & 1)) * kT * kWS, kWS,
-            x_bc + (size_t)(h0 + jh) * P, hP, kt * kT, kT, Q, 0, px, P, vec);
+            x_bc + (size_t)(h0 + jh) * P, hP, kt * kT, kT, Q, 0, px, pw,
+            vec);
       cp_async_commit();
     };
     stage_x(0);
@@ -374,7 +384,7 @@ __device__ void y_block(const float* __restrict__ x,
         if (t >= Q) continue;
         float* yr = yh + (size_t)t * hP;
         if (vec) {
-          if (4 * tx < P) {
+          if (4 * tx < pw) {
             float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2],
                                    acc[i][3]);
             if (g0 > 0) {
@@ -390,7 +400,7 @@ __device__ void y_block(const float* __restrict__ x,
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int p = 4 * tx + j;
-            if (p < P) yr[p] = g0 > 0 ? yr[p] + acc[i][j] : acc[i][j];
+            if (p < pw) yr[p] = g0 > 0 ? yr[p] + acc[i][j] : acc[i][j];
           }
         }
       }
@@ -399,15 +409,16 @@ __device__ void y_block(const float* __restrict__ x,
   }
 }
 
-// states and decay of head h of one chunk
+// states rows [p0, p0 + pw) of head h of one chunk, and its decay when
+// p0 = 0
 __device__ void state_block(const float* __restrict__ x,
                             const float* __restrict__ dt,
                             const float* __restrict__ a,
                             const float* __restrict__ b,
                             float* __restrict__ states,
                             float* __restrict__ decay, size_t bc, int h,
-                            int Q, int H, int P, int G, int N, int ld,
-                            bool vec, float* smem) {
+                            int Q, int H, int P, int p0, int pw, int G,
+                            int N, int ld, bool vec, float* smem) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = h / (H / G);
   float* cs_s = smem;
@@ -415,7 +426,7 @@ __device__ void state_block(const float* __restrict__ x,
   float* region = wt_s + ld;
   head_cumsums(dt + bc * Q * H + h, H, a + h, 1, Q, ld, cs_s, wt_s);
   const float cs_last = cs_s[Q - 1];
-  if (tid == 0) decay[bc * H + h] = expf(cs_last);
+  if (tid == 0 && p0 == 0) decay[bc * H + h] = expf(cs_last);
   // the row's weight; a padded row (dt_u = 0) adds nothing
   for (int u = tid; u < Q; u += kThreads)
     wt_s[u] = expf(cs_last - cs_s[u]) * wt_s[u];
@@ -423,8 +434,8 @@ __device__ void state_block(const float* __restrict__ x,
 
   const size_t gN = (size_t)G * N, hP = (size_t)H * P;
   const float* b_bc = b + bc * Q * gN + (size_t)g * N;
-  const float* x_h = x + bc * Q * hP + (size_t)h * P;
-  float* st = states + (bc * H + h) * (size_t)P * N;
+  const float* x_h = x + bc * Q * hP + (size_t)h * P + p0;
+  float* st = states + ((bc * H + h) * (size_t)P + p0) * N;
   // thread tile: rows p = 4 tp + i, columns n0 + 4 tn + j and n0 + 64 +
   // 4 tn + j
   const int tp = 4 * (warp >> 1) + (lane >> 3);
@@ -434,7 +445,7 @@ __device__ void state_block(const float* __restrict__ x,
     auto stage_step = [&](int s) {
       float* slot = region + (s & 1) * kSlotS;
       stage(slot, kBS, b_bc, gN, s * kSR, kSR, Q, n0, kSN, N, vec);
-      stage(slot + kSR * kBS, kWS, x_h, hP, s * kSR, kSR, Q, 0, kT, P, vec);
+      stage(slot + kSR * kBS, kWS, x_h, hP, s * kSR, kSR, Q, 0, kT, pw, vec);
       cp_async_commit();
     };
     float acc[4][8];
@@ -477,7 +488,7 @@ __device__ void state_block(const float* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int p = 4 * tp + i;
-      if (p >= P) continue;
+      if (p >= pw) continue;
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int n = n0 + 64 * half + 4 * tn;
@@ -513,11 +524,14 @@ ssd_intra_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const long long n_top = top_levels * per_level;
   const long long n_state = (long long)H * BNC;
   const int ld = (Q + 2) & ~1;  // even: what follows stays 16-byte aligned
-  long long idx = blockIdx.x;
+  // the head-dim block varies fastest: one piece of work's blocks adjoin
+  const int n_pb = (P + kT - 1) / kT;
+  const int p0 = (int)(blockIdx.x % n_pb) * kT, pw = min(kT, P - p0);
+  long long idx = blockIdx.x / n_pb;
   if (idx >= n_top && idx < n_top + n_state) {
     idx -= n_top;
     state_block(x, dt, a, b, states, decay, idx / H, (int)(idx % H), Q, H, P,
-                G, N, ld, vec != 0, smem);
+                p0, pw, G, N, ld, vec != 0, smem);
     return;
   }
   if (idx >= n_top) idx -= n_state;
@@ -530,7 +544,7 @@ ssd_intra_f32_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   const size_t bc = (size_t)(rest / G);
   const int hg0 = hblk * hb;
   y_block(x, dt, a, b, c, y, bc, n_qt - 1 - level, g, g * HG + hg0,
-          min(hb, HG - hg0), Q, H, P, G, N, ld, vec != 0, smem);
+          min(hb, HG - hg0), Q, H, P, p0, pw, G, N, ld, vec != 0, smem);
 }
 
 }  // namespace
@@ -544,7 +558,7 @@ extern "C" int ssd_intra_f32(const void* x, const void* dt, const void* a,
                              int P, int G, int N, int hb, int top_levels,
                              int vec, void* stream) {
   if (BNC <= 0 || Q <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 ||
-      P > kT || N <= 0 || hb <= 0 || hb > H / G || top_levels < 0 ||
+      N <= 0 || hb <= 0 || hb > H / G || top_levels < 0 ||
       top_levels > (Q + kT - 1) / kT)
     return (int)cudaErrorInvalidValue;
   const int ld = (Q + 2) & ~1;
@@ -562,7 +576,8 @@ extern "C" int ssd_intra_f32(const void* x, const void* dt, const void* a,
   }
   const long long n_qt = (Q + kT - 1) / kT;
   const long long blocks =
-      n_qt * ((H / G + hb - 1) / hb) * G * BNC + (long long)H * BNC;
+      (n_qt * ((H / G + hb - 1) / hb) * G * BNC + (long long)H * BNC) *
+      ((P + kT - 1) / kT);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   ssd_intra_f32_kernel<<<(unsigned)blocks, kThreads, smem,
                          (cudaStream_t)stream>>>(

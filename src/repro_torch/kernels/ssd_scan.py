@@ -11,7 +11,12 @@ Per (batch, chunk, head), with ``cs = cumsum(dt * a)`` along the chunk:
 reference's Pallas ``_ssd_kernel``) for CUDA tensors and takes
 ``ssd_intra_plain`` only for CPU tensors; on the card it launches or
 raises, it never falls back. ``ssd_intra.launches`` counts the kernel
-launches, one per call (48 per prefill of ``mamba2_780m``).
+launches: one per call, whatever the head dim (48 per prefill of
+``mamba2_780m``).
+
+Any head dim: every output's head-dim column depends on x's column alone,
+so the kernel covers ``P`` in blocks of ``P_BLOCK`` columns, each block
+reading x and writing y at their own row stride (nothing is copied).
 
 B and C come per group, ``(B, NC, Q, G, N)``, and head ``h`` reads group
 ``h // (H / G)``; for ``G = H`` this is the reference's signature. The
@@ -28,12 +33,12 @@ import torch
 
 from . import cuda_lib
 
-# the kernel's limits: a (64 x P) tile of x, C and B staged 32 columns of
-# N at a time, cs of a block's heads over the chunk in shared memory.
-# MAX_HEAD_DIM mirrors csrc/ssd_scan.cu's kT, whose entry point refuses a
-# launch with P > kT; the other limits are this wrapper's, and keep the
-# block's shared memory within the card's.
-MAX_HEAD_DIM = 64
+# head-dim columns a block covers (csrc/ssd_scan.cu's kT); a larger P runs
+# ceil(P / P_BLOCK) blocks for each piece of work
+P_BLOCK = 64
+# the wrapper's limits: a (64 x P_BLOCK) tile of x, C and B staged 32
+# columns of N at a time, cs of a block's heads over the chunk in shared
+# memory; they keep the block's shared memory within the card's.
 MAX_D_STATE = 256
 MAX_CHUNK = 4096
 # heads a y-block serves at most, and the floats their cs and dt arrays
@@ -72,11 +77,9 @@ def _check(x, dt, a, b, c) -> None:
             raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_D_STATE
-            and 0 < q <= MAX_CHUNK):
-        raise ValueError(f"the kernel takes head_dim <= {MAX_HEAD_DIM}, "
-                         f"d_state <= {MAX_D_STATE} and chunk <= "
-                         f"{MAX_CHUNK}; got P {p}, N {n}, Q {q}")
+    if not (0 < n <= MAX_D_STATE and 0 < q <= MAX_CHUNK):
+        raise ValueError(f"the kernel takes d_state <= {MAX_D_STATE} and "
+                         f"chunk <= {MAX_CHUNK}; got N {n}, Q {q}")
 
 
 def _block_plan(bnc: int, q: int, h: int, g: int, p: int, n: int,
@@ -87,14 +90,17 @@ def _block_plan(bnc: int, q: int, h: int, g: int, p: int, n: int,
     the cs and dt arrays of a chunk fit in ``CS_FLOATS``), halved while
     the y-blocks alone would not fill two blocks an SM. Of the query-tile
     levels, the ``top_levels`` longest (whose blocks do at least a state
-    block's work) run before the state blocks, the rest after them."""
+    block's work) run before the state blocks, the rest after them. Every
+    block covers at most ``P_BLOCK`` head-dim columns, and each piece of
+    work runs ``ceil(p / P_BLOCK)`` blocks."""
     hg, n_qt = h // g, -(-q // 64)
+    n_pb, pw = -(-p // P_BLOCK), min(p, P_BLOCK)
     ld = (q + 2) & ~1
     hb = max(1, min(hg, MAX_HEADS_PER_BLOCK, CS_FLOATS // (2 * ld)))
-    while hb > 1 and n_qt * -(-hg // hb) * g * bnc < 2 * n_sm:
+    while hb > 1 and n_qt * -(-hg // hb) * g * bnc * n_pb < 2 * n_sm:
         hb = (hb + 1) // 2
-    state_work = q * p * n
-    top = sum((qt + 1) * 64 * 64 * (n + hb * p) >= state_work
+    state_work = q * pw * n
+    top = sum((qt + 1) * 64 * 64 * (n + hb * pw) >= state_work
               for qt in range(n_qt))
     return hb, top
 

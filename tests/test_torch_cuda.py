@@ -216,8 +216,14 @@ def _ssd_case(seed, b, nc, q, h, p, g, n, device, a=None, dt_shift=0.0):
      dict(a=-1.0)),                           # groups of key tiles, RMW of y
     (dict(b=1, nc=2, q=96, h=6, p=20, g=3, n=36), {}),  # P, N not 32-wide
     (dict(b=1, nc=2, q=70, h=4, p=6, g=2, n=10), {}),   # 4-byte copies
+    # head dims past the kernel's 64-column blocks (an earlier wrapper
+    # refused them with a ValueError)
+    (dict(b=2, nc=2, q=256, h=8, p=128, g=1, n=128), dict(a=-1.0)),
+    (dict(b=1, nc=3, q=160, h=6, p=96, g=2, n=64), {}),
+    (dict(b=1, nc=2, q=70, h=2, p=130, g=1, n=10), {}),  # 4-byte copies
 ], ids=["oracle-case", "b2", "q64", "g2-of-8", "q80", "overflow", "q300",
-        "reuse_h48_g1", "g2_of_8_q128", "q1024", "p20_n36", "p6_n10"])
+        "reuse_h48_g1", "g2_of_8_q128", "q1024", "p20_n36", "p6_n10",
+        "p128", "p96", "p130"])
 def test_ssd_kernel_matches_plain(cuda, shape, kw):
     case = _ssd_case(0, device=cuda, **shape, **kw)
     before = ssd_intra.launches
@@ -251,8 +257,6 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # not contiguous
         ssd_intra(x.transpose(3, 4).contiguous().transpose(3, 4), dt, a, b,
                   c)
-    with pytest.raises(ValueError):  # head_dim above the kernel's 64
-        ssd_intra(torch.cat([x, x], 4), dt, a, b, c)
 
 
 def test_static_serving_tokens_kernel_vs_plain(cuda):

@@ -32,7 +32,8 @@ from repro.models.model import Model as JaxModel  # noqa: E402
 from repro.models.params import split_params  # noqa: E402
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
 from repro_torch.kernels.ssd_scan import (_block_plan,  # noqa: E402
-                                          ssd_intra, ssd_intra_plain)
+                                          _check, ssd_intra,
+                                          ssd_intra_plain)
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import (init_params,  # noqa: E402
@@ -85,7 +86,9 @@ def _close(got, want, **tol):
     (1, 3, 16, 4, 8, 16, 2),      # tests/test_kernels.py's oracle case
     (2, 2, 32, 8, 16, 32, 8),
     (1, 1, 64, 2, 64, 64, 2),
-], ids=["oracle-case", "b2", "q64"])
+    (1, 2, 32, 2, 96, 16, 2),     # head dims past the kernel's 64-column
+    (1, 1, 64, 2, 128, 32, 1),    # blocks (the Pallas kernel takes any)
+], ids=["oracle-case", "b2", "q64", "p96", "p128"])
 def test_ssd_intra_plain_matches_pallas_and_oracle(shape):
     b, nc, q, h, p, n, hb = shape
     x, dt, A, B, C, _ = _ssd_inputs(1, b, nc * q, h, p, h, n)
@@ -148,6 +151,23 @@ def test_ssd_block_plan_from_shapes():
     assert _block_plan(1, 64, 2, 2, 64, 64, 132)[0] == 1
     hb, top = _block_plan(12, 256, 48, 1, 64, 256, 132)
     assert hb == 8 and 0 < top < 4  # a heavy state block goes earlier
+
+
+@pytest.mark.parametrize("p", [96, 128, 130])
+def test_ssd_wrapper_takes_any_head_dim(p):
+    """The wrapper's checks pass any head dim (an earlier kernel refused
+    P > 64 with a ValueError); the plan cuts P into 64-column blocks, so
+    its head block and levels are those of one 64-column block with the
+    grid ceil(P / 64) times larger."""
+    x, dt, A, B, C, _ = _ssd_inputs(6, 1, 32, 4, p, 2, 16)
+    _check(*_t(x.reshape(1, 2, 16, 4, p), dt.reshape(1, 2, 16, 4), A,
+               B.reshape(1, 2, 16, 2, 16), C.reshape(1, 2, 16, 2, 16)))
+    assert _block_plan(12, 256, 48, 1, p, 128, 132) == (8, 4)
+    # 40 chunks of one query tile, 2 groups of 4 heads: at hb = 2 the
+    # y-blocks are 160 at P = 64, under two an SM, so hb halves to 1; at
+    # P > 64 they are 320 or 480, and hb stays 2
+    assert _block_plan(40, 64, 8, 2, 64, 64, 132)[0] == 1
+    assert _block_plan(40, 64, 8, 2, p, 64, 132)[0] == 2
 
 
 def test_ssd_intra_overflow_upper_triangle_is_zero():

@@ -8,9 +8,9 @@ decisions), ``env.step``, data cursors and losses are held to the
 reference run's. Then the checkpoint integrity and delete-guard tests of
 ``tests/test_recovery.py``, on a torch env.
 
-Tolerance: losses (and the ``expected_loss`` the planner derives from
-them) rtol = 1e-4, as the trajectories of ``test_torch_train.py``;
-everything else is exact.
+Tolerance (``_torch_trainer_parity``): losses (and the
+``expected_loss`` the planner derives from them) rtol = 1e-4, as the
+trajectories of ``test_torch_train.py``; everything else is exact.
 """
 import os
 
@@ -18,119 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from repro.configs.base import get_config as jax_get_config  # noqa: E402
-from repro.configs.base import smoke as jax_smoke  # noqa: E402
-from repro.core import acl as jax_acl  # noqa: E402
-from repro.core import bus as jax_bus  # noqa: E402
-from repro.core import executor as jax_executor  # noqa: E402
-from repro.core import introspect as jax_introspect  # noqa: E402
-from repro.core import recovery as jax_recovery  # noqa: E402
-from repro.core import voter as jax_voter  # noqa: E402
-from repro.data import pipeline as jax_pipeline  # noqa: E402
-from repro.models.model import Model as JaxModel  # noqa: E402
-from repro.models.params import split_params  # noqa: E402
-from repro.optim import optimizer as jax_optimizer  # noqa: E402
-from repro.train import train_step as jax_train_step  # noqa: E402
-from repro.train import trainer as jax_trainer  # noqa: E402
+import _torch_trainer_parity as parity  # noqa: E402
 from repro_torch.configs.base import get_config, smoke  # noqa: E402
-from repro_torch.core import (STANDARD_RULES, Executor,  # noqa: E402
-                              MemoryBus, RuleVoter, committed_unexecuted,
-                              summarize_bus, trace_intents)
-from repro_torch.core.acl import BusClient  # noqa: E402
 from repro_torch.data.pipeline import DataConfig  # noqa: E402
-from repro_torch.models.params import params_from_numpy  # noqa: E402
 from repro_torch.optim.optimizer import OptimizerConfig  # noqa: E402
 from repro_torch.train.train_step import StepConfig  # noqa: E402
-from repro_torch.train.trainer import (TRAIN_HANDLERS,  # noqa: E402
-                                       InjectedCrash, build_env,
-                                       build_training_agent)
+from repro_torch.train.trainer import build_env  # noqa: E402
 
 torch.set_num_threads(1)
-LOSS_RTOL = 1e-4
-
-
-class _Side:
-    """One package's names for the scenarios."""
-
-    def __init__(self, name):
-        self.name = name
-        jax_side = name == "jax"
-        self.MemoryBus = jax_bus.MemoryBus if jax_side else MemoryBus
-        self.BusClient = jax_acl.BusClient if jax_side else BusClient
-        self.Executor = jax_executor.Executor if jax_side else Executor
-        self.RuleVoter = jax_voter.RuleVoter if jax_side else RuleVoter
-        self.STANDARD_RULES = (jax_voter.STANDARD_RULES if jax_side
-                               else STANDARD_RULES)
-        self.trace_intents = (jax_introspect.trace_intents if jax_side
-                              else trace_intents)
-        self.summarize_bus = (jax_introspect.summarize_bus if jax_side
-                              else summarize_bus)
-        self.committed_unexecuted = (jax_recovery.committed_unexecuted
-                                     if jax_side else committed_unexecuted)
-        self.handlers = (jax_trainer.TRAIN_HANDLERS if jax_side
-                         else TRAIN_HANDLERS)
-        self.InjectedCrash = (jax_trainer.InjectedCrash if jax_side
-                              else InjectedCrash)
-        self.build_training_agent = (jax_trainer.build_training_agent
-                                     if jax_side else build_training_agent)
-
-    def env(self, tmpdir, opt_kw, remat="none"):
-        """Smoke qwen3_4b; both sides start from the reference's
-        initializer at seed 0."""
-        if self.name == "jax":
-            cfg = jax_smoke(jax_get_config("qwen3_4b"))
-            env = jax_trainer.build_env(
-                cfg, jax_optimizer.OptimizerConfig(**opt_kw),
-                jax_train_step.StepConfig(remat=remat),
-                jax_pipeline.DataConfig(cfg.vocab, 16, 4), tmpdir)
-            env.ensure_initialized()
-            return env
-        cfg = smoke(get_config("qwen3_4b"))
-        env = build_env(cfg, OptimizerConfig(**opt_kw),
-                        StepConfig(remat=remat),
-                        DataConfig(cfg.vocab, 16, 4), tmpdir, device="cpu")
-        env.state = env.init_state(params_from_numpy(_jax_init(), "cpu"))
-        return env
-
-
-def _jax_init():
-    m = JaxModel(jax_smoke(jax_get_config("qwen3_4b")), dtype=jnp.float32)
-    return jax.tree.map(np.asarray,
-                        split_params(m.init(jax.random.PRNGKey(0)))[0])
-
-
-def _record(side, bus, env):
-    """What the run did: each intent's kind, args, decision and result."""
-    trace = []
-    for t in side.trace_intents(bus.read(0)):
-        res = t.result or {}
-        trace.append({"kind": t.kind, "args": t.args,
-                      "decision": t.decision, "ok": res.get("ok"),
-                      "value": {k: v for k, v in (res.get("value") or {})
-                                .items() if k != "path"}})
-    return {"trace": trace, "step": env.step, "cursor": env.data_cursor}
-
-
-def _same(a, b, path=""):
-    """Equal, with floats (losses and what derives from them) to
-    LOSS_RTOL."""
-    if isinstance(a, dict):
-        assert set(a) == set(b), (path, set(a), set(b))
-        for k in a:
-            _same(a[k], b[k], f"{path}/{k}")
-    elif isinstance(a, (list, tuple)):
-        assert len(a) == len(b), path
-        for i, (x, y) in enumerate(zip(a, b)):
-            _same(x, y, f"{path}[{i}]")
-    elif isinstance(a, float) or isinstance(b, float):
-        np.testing.assert_allclose(a, b, rtol=LOSS_RTOL, atol=0,
-                                   err_msg=path)
-    else:
-        assert a == b, (path, a, b)
 
 
 def _crash_drill(side, tmpdir):
@@ -159,13 +56,13 @@ def _crash_drill(side, tmpdir):
     starts = [t.args["data_start"] for t in ts if t.kind == "train_chunk"
               and t.result and t.result["ok"]]
     assert starts == sorted(starts) and len(set(starts)) == len(starts)
-    return _record(side, bus, env)
+    return parity.record(side, bus, env)
 
 
 def test_crash_drill_matches_reference(tmp_path):
-    want = _crash_drill(_Side("jax"), str(tmp_path / "j"))
-    got = _crash_drill(_Side("torch"), str(tmp_path / "t"))
-    _same(got, want)
+    want = _crash_drill(parity.Side("jax"), str(tmp_path / "j"))
+    got = _crash_drill(parity.Side("torch"), str(tmp_path / "t"))
+    parity.same(got, want)
     kinds = [t["kind"] for t in got["trace"]]
     assert kinds == ["train_chunk", "train_chunk", "probe_state",
                      "train_chunk", "eval"]
@@ -195,20 +92,20 @@ def _governed(side, tmpdir):
         if t.kind == "train_chunk":
             assert t.votes and t.decision == "commit" and t.result["ok"]
             assert all(np.isfinite(t.result["value"]["losses"]))
-    return _record(side, bus, env)
+    return parity.record(side, bus, env)
 
 
 def test_governed_training_matches_reference(tmp_path):
-    want = _governed(_Side("jax"), str(tmp_path / "j"))
-    got = _governed(_Side("torch"), str(tmp_path / "t"))
-    _same(got, want)
+    want = _governed(parity.Side("jax"), str(tmp_path / "j"))
+    got = _governed(parity.Side("torch"), str(tmp_path / "t"))
+    parity.same(got, want)
     kinds = [t["kind"] for t in got["trace"]]
     assert kinds == ["train_chunk", "train_chunk", "save_checkpoint",
                      "train_chunk", "train_chunk", "eval"]
 
 
 def _torch_env(tmpdir):
-    return _Side("torch").env(tmpdir, dict(lr=1e-3, warmup_steps=2,
+    return parity.Side("torch").env(tmpdir, dict(lr=1e-3, warmup_steps=2,
                                            total_steps=24))
 
 
