@@ -98,9 +98,39 @@ code is not 0 and no result line is printed:
    must move the logits; gemma2's window control must too. Then prefill
    and decode times and profiles, and flash at gemma2's windowed layer
    beside its bound and sdpa.
-9. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those of
-   its governed kernel runs, named on the line before), the card's name
-   and power limit, and last the ``{"ok": true, "device": ...}`` line.
+9. slice 6 — the last three families at full width through the governed
+   static agent, one after another, each one's weights freed before the
+   next, each with the ``wq``/``wk`` of every attention tree (the shared
+   block's, the encoder's, the decoder's self and cross) scaled as in
+   slice 5 (whisper's further, to score std WHISPER_SCORE_STD, with the
+   cross keys scaled for the encoder output's RMS: at SCORE_STD its
+   plain path moves by about the held limits when only the order of its
+   attention sums changes; both noise floors are printed):
+   ``zamba2_1p2b`` (38 mamba2 layers and one shared
+   attention+MLP block after every 6th, windowed 4096) with prompts of
+   4,500 and 600 tokens (38 ``ssd_intra`` and 6 flash launches a
+   prefill); ``whisper_small`` (12 encoder layers over 1500 zero frames,
+   12 decoder layers with cross-attention) with prompts of 40 and 24
+   tokens (36 flash launches a prefill: encoder, decoder self and cross);
+   ``internvl2_26b`` at 24 of its 48 layers behind 256 zero patch
+   embeddings with prompts of 1,024 and 300 tokens (24 flash launches a
+   prefill at 48/8 heads). Each runs twice, kernel then plain, with the
+   same tokens. A further prefill of the served batch (on unit-normal
+   frames or patch embeddings for whisper and internvl2) holds every
+   kernel launch to its plain version on its own inputs, beside a broken
+   control (plain without the window, or with ``causal`` flipped; for
+   ``ssd_intra`` plain with each chunk's last x row zeroed), and the
+   logits, every layer's K/V, zamba2's final SSM states and whisper's
+   encoder K/V to the plain path's. Broken controls on the plain path
+   must break those limits: zamba2 without the shared window, whisper
+   with the encoder causal, internvl2 with the patch prefix dropped.
+   Then prefill and decode times, peak memory and profiles, flash at
+   zamba2's windowed shared block and at whisper's cross-attention, and
+   ``ssd_intra`` at zamba2's layer 0, each beside its bound.
+10. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those
+   of its governed kernel runs, named on the line before), the card's
+   name and power limit, and last the ``{"ok": true, "device": ...}``
+   line.
 """
 from __future__ import annotations
 
@@ -159,6 +189,15 @@ SLICE5_NEW_TOKENS = 8
 GEMMA2_PROMPTS = (4500, 600)
 MIXTRAL_PROMPTS = (4500, 1000)
 MIXTRAL_LAYERS = 8
+# slice 6: zamba2_1p2b's prompts pass its shared block's 4096 window;
+# internvl2_26b runs 24 of its 48 layers (the whole model is ~79 GB in
+# fp32, the card's whole memory), its prompts behind 256 patch tokens
+ZAMBA2_PROMPTS = (4500, 600)
+WHISPER_PROMPTS = (40, 24)
+INTERNVL2_PROMPTS = (1024, 300)
+INTERNVL2_LAYERS = 24
+# whisper_small's attention scores in slice 6 (see _whisper_weights)
+WHISPER_SCORE_STD = 1.0
 # slice 1's governed kernel run is made once on each of these logs: the
 # in-memory bus, SQLite with group commit, and the segmented KV store
 SERVE_BUSES = ("memory", "sqlite", "kv")
@@ -724,24 +763,17 @@ def _batch_tokens(run, requests):
     return out
 
 
-def _final_states(model, params, tokens):
-    """Logits (real vocab) and the per-layer final SSM states of one
-    prefill."""
-    logits, cache = model.prefill(params, {"tokens": tokens})
-    return logits[..., :model.cfg.vocab], cache["ssm"]["state"]
-
-
 def _top2_margin(model, params, toks, row, pos, tokens_so_far):
     """Top-1 minus top-2 logit of ``row`` at decoded position ``pos`` on
     the plain path, feeding the plain path's own tokens."""
     import torch
-    logits, cache = model.prefill(
-        params, {"tokens": torch.from_numpy(toks).cuda()},
-        extra_cache=len(tokens_so_far[0]))
+    from repro_torch.serving.server import stub_batch
+    batch, pos0 = stub_batch(model.cfg, torch.from_numpy(toks).cuda())
+    logits, cache = model.prefill(params, batch,
+                                  extra_cache=len(tokens_so_far[0]))
     for t in range(pos):
         tok = torch.tensor([[r[t]] for r in tokens_so_far], device="cuda")
-        logits, cache = model.decode_step(params, cache, tok,
-                                          toks.shape[1] + t)
+        logits, cache = model.decode_step(params, cache, tok, pos0 + t)
     top = torch.topk(logits[row, -1], 2).values
     return (top[0] - top[1]).item()
 
@@ -768,17 +800,17 @@ def time_static(model, params, batches, smi):
     batch's rows, peak memory, and profiles of one prefill and of three
     decode steps."""
     import torch
+    from repro_torch.serving.server import stub_batch
     prefill_ms = []
     for _, bt in batches:
-        bt_t = torch.from_numpy(bt).cuda()
+        batch, plen = stub_batch(model.cfg, torch.from_numpy(bt).cuda())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": bt_t},
+        logits, cache = model.prefill(params, batch,
                                       extra_cache=STATIC_NEW_TOKENS)
         torch.cuda.synchronize()
         prefill_ms.append((bt.shape, (time.perf_counter() - t0) * 1e3))
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
-    plen = bt.shape[1]
     logits, cache = model.decode_step(params, cache, tok, plen)  # warm
     n_steps = 8
     torch.cuda.synchronize()
@@ -798,7 +830,7 @@ def time_static(model, params, batches, smi):
 
     def one_prefill():
         holder["cache"] = model.prefill(
-            params, {"tokens": bt_t}, extra_cache=STATIC_NEW_TOKENS)[1]
+            params, batch, extra_cache=STATIC_NEW_TOKENS)[1]
 
     def one_decode():
         holder["cache"] = model.decode_step(params, holder["cache"], tok,
@@ -900,7 +932,7 @@ def slice_mamba2(smi):
     its timing at the slice's own inputs."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
+    from repro_torch.kernels.ssd_scan import ssd_intra_plain
     from repro_torch.models import ssm as ssm_lib
     from repro_torch.models.model import Model
 
@@ -924,18 +956,9 @@ def slice_mamba2(smi):
     # catch a wrong SSD path.
     kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
     rids, toks = max(batches, key=lambda bt: bt[1].shape[1])
-    tok_t = torch.from_numpy(toks).cuda()
-    kl, ks = _final_states(kmodel, params, tok_t)
-    pl, ps = _final_states(pmodel, params, tok_t)
-    lmax, smax = pl.abs().max().item(), ps.abs().max().item()
-
-    def gaps(logits, states):
-        """Max abs diff from the plain path of the logits and the states,
-        and whether each is within its limit."""
-        lerr = (logits - pl).abs().max().item()
-        serr = (states - ps).abs()
-        return (lerr, serr.max().item(), lerr <= LOGIT_RTOL * lmax,
-                bool(torch.all(serr <= CACHE_TOL * (smax + ps.abs()))))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    kernel = _prefill_outs(kmodel, params, batch)
+    plain = _prefill_outs(pmodel, params, batch)
 
     def broken(out):
         def intra(*args):
@@ -943,50 +966,40 @@ def slice_mamba2(smi):
             return ((torch.zeros_like(y), states, decay) if out == "y"
                     else (y, torch.zeros_like(states), decay))
         return intra
-    kgap = gaps(kl, ks)
+    kgap = _gaps(kernel, plain)
     controls = {}
     for out in ("y", "states"):
         ssm_lib.ssd_intra_plain = broken(out)
         try:
-            controls[out] = gaps(*_final_states(pmodel, params, tok_t))
+            controls[out] = _gaps(_prefill_outs(pmodel, params, batch),
+                                  plain)
         finally:
             ssm_lib.ssd_intra_plain = ssd_intra_plain
-    print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|state|"
-          f" {smax:.4e}; limits: logits {LOGIT_RTOL} x max|logit|, states "
-          f"{CACHE_TOL} x max|state| + rtol {CACHE_TOL}")
-    for label, (lerr, serr, lok, sok) in [("kernel", kgap)] + [
-            (f"control, plain with {o} zeroed", g)
-            for o, g in controls.items()]:
-        print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
-              f"({'within' if lok else 'over'} the limit), final states "
-              f"{serr:.4e} ({'within' if sok else 'over'} the limit)")
-    if not (torch.isfinite(kl).all() and torch.isfinite(ks).all()
-            and kgap[2] and kgap[3]):
+    print(f"  prefill {tuple(toks.shape)}, max|logit| "
+          f"{plain['logits'].abs().max().item():.4e}, max|state| "
+          f"{plain['SSM states'].abs().max().item():.4e}; limits: logits "
+          f"{LOGIT_RTOL} x max|logit|, states {CACHE_TOL} x max|state| + "
+          f"rtol {CACHE_TOL}")
+    _print_gaps("kernel", kgap)
+    for o, g in controls.items():
+        _print_gaps(f"control, plain with {o} zeroed", g)
+    if not (torch.isfinite(kernel["logits"]).all()
+            and torch.isfinite(kernel["SSM states"]).all()
+            and all(ok for _, _, ok in kgap.values())):
         raise AssertionError("full-width prefill: kernel vs plain logits or "
                              "final states over the limit, or not finite")
-    if any(g[3] for g in controls.values()):
+    if any(g["SSM states"][2] for g in controls.values()):
         raise AssertionError("a broken SSD path passed the final states' "
                              "limit: the check has no power")
-    del kl, ks, pl, ps, run
+    del kernel, plain, run
 
     time_static(kmodel, params, batches, smi)
 
     # the kernel at the slice's own inputs: layer 0's SSD in the prefill
     # of the longest batch (captured from the path, launched outside the
     # counted run)
-    captured = []
-
-    def capture(*args):
-        if not captured:
-            captured.append([t.clone() for t in args])
-        return ssd_intra(*args)
-    ssm_lib.ssd_intra = capture
-    try:
-        kmodel.prefill(params, {"tokens": tok_t})
-    finally:
-        ssm_lib.ssd_intra = ssd_intra
-    case = captured[0]
-    del captured
+    case, _ = _capture(kmodel, params, batch, "ssd_intra",
+                       lambda a, kw: True)
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     t = time_ssd_intra(case, flush)
     print(f"  ssd_intra at the slice's shape x {tuple(case[0].shape)} b/c "
@@ -1078,11 +1091,13 @@ def _flash_err(label, case, kw):
     return err.max().item()
 
 
-def time_flash_attention(case, flush, softcap=None, window=None):
-    """Kernel, plain version, bound and library call at one causal input
-    set (q (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as the dense prefill calls it,
-    with a window or without. The library call has no softcap: with one,
-    it is a yardstick of the same shapes only."""
+def time_flash_attention(case, flush, softcap=None, window=None,
+                         causal=True):
+    """Kernel, plain version, bound and library call at one input set (q
+    (B,Sq,H,Dh), k/v (B,Sk,Kv,Dh)), as a prefill calls it: causal with a
+    window or without, or not causal without one (an encoder, a
+    cross-attention). The library call has no softcap: with one, it is a
+    yardstick of the same shapes only."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_mha,
@@ -1090,13 +1105,15 @@ def time_flash_attention(case, flush, softcap=None, window=None):
     q, k, v = case
     bsz, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    kw = dict(softcap=softcap, window=window)
+    kw = dict(softcap=softcap, window=window, causal=causal)
     ms = _time_ms(lambda: flash_mha(q, k, v, **kw), flush)
     plain_ms = _time_ms(lambda: flash_mha_plain(q, k, v, **kw), flush)
     # the least work: 2 FLOPs per MAC of q.k and of p.v over the visible
-    # (q, k) pairs (k <= q, and k > q - window) of every query head; q and
-    # K/V (once per kv head) read once, the output written once
-    visible = sum(min(sk, i + 1, window or sk) for i in range(sq))
+    # (q, k) pairs (k <= q, and k > q - window; every pair when not
+    # causal) of every query head; q and K/V (once per kv head) read once,
+    # the output written once
+    visible = (sum(min(sk, i + 1, window or sk) for i in range(sq))
+               if causal else sq * sk)
     n_ops = 4 * dh * visible * bsz * h
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
@@ -1108,7 +1125,7 @@ def time_flash_attention(case, flush, softcap=None, window=None):
     vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2).contiguous()
     if window is None:
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush)
+            qt, kt, vt, is_causal=causal), flush)
     else:
         qi = torch.arange(sq, device=q.device)[:, None]
         ki = torch.arange(sk, device=q.device)[None]
@@ -1120,11 +1137,93 @@ def time_flash_attention(case, flush, softcap=None, window=None):
                 library_ms=library_ms, flop=n_ops, bytes=n_bytes)
 
 
-def _prefill_kv(model, params, tokens):
-    """Logits (real vocab) and every layer's K and V of one prefill."""
-    logits, cache = model.prefill(params, {"tokens": tokens})
-    return (logits[..., :model.cfg.vocab], cache["attn"]["k"],
-            cache["attn"]["v"])
+def _prefill_outs(model, params, batch):
+    """Logits (real vocab) and what one prefill leaves in the cache, by
+    name: every layer's (or shared-block application's) K and V, every
+    layer's final SSM state, every decoder layer's encoder K and V."""
+    logits, cache = model.prefill(params, batch)
+    out = {"logits": logits[..., :model.cfg.vocab]}
+    kv = cache.get("attn", cache.get("shared_attn"))
+    if kv is not None:
+        out["K"], out["V"] = kv["k"], kv["v"]
+    if "ssm" in cache:
+        out["SSM states"] = cache["ssm"]["state"]
+    if "cross_k" in cache:
+        out["cross K"], out["cross V"] = cache["cross_k"], cache["cross_v"]
+    return out
+
+
+def _prefill_with(model, params, batch, flash=None, ssd=None,
+                  attention=None, routing=None):
+    """``_prefill_outs`` with the model's ``flash_mha``, the SSD layer's
+    ``ssd_intra`` or the model's plain ``attention`` replaced by the given
+    stand-ins; with a list ``routing``, each moe layer's (top_e, keep)
+    appended to it."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import ssm as ssm_lib
+    saved = (model_lib.flash_mha, ssm_lib.ssd_intra, model_lib.attention,
+             moe_lib.dispatch_plan)
+
+    def recording(top_e, n_experts, cap):
+        out = saved[3](top_e, n_experts, cap)
+        routing.append((top_e.clone(), out[3].clone()))
+        return out
+    model_lib.flash_mha = flash or saved[0]
+    ssm_lib.ssd_intra = ssd or saved[1]
+    model_lib.attention = attention or saved[2]
+    if routing is not None:
+        moe_lib.dispatch_plan = recording
+    try:
+        return _prefill_outs(model, params, batch)
+    finally:
+        (model_lib.flash_mha, ssm_lib.ssd_intra, model_lib.attention,
+         moe_lib.dispatch_plan) = saved
+
+
+def _gaps(got, want, layers=slice(None)):
+    """Per output of ``_prefill_outs``: the max abs diff from the plain
+    path's ``want``, the largest ratio of an element's diff to its limit
+    (the logits LOGIT_RTOL x max|logit|; the cache outputs slice 3's rule,
+    CACHE_TOL x (max + |plain|), the max over every layer, held over
+    ``layers``) and whether that ratio is at most 1. A NaN fails."""
+    out = {}
+    for name, w in want.items():
+        if name == "logits":
+            err = (got[name] - w).abs()
+            ratio = (err.max() / (LOGIT_RTOL * w.abs().max())).item()
+        else:
+            wl = w[layers]
+            err = (got[name][layers] - wl).abs()
+            ratio = (err / (CACHE_TOL * (w.abs().max() + wl.abs()))).max(
+            ).item()
+        out[name] = (err.max().item(), ratio, ratio <= 1.0)
+    return out
+
+
+def _print_gaps(label, gaps):
+    print(f"    {label} vs plain: " + ", ".join(
+        f"{n} {e:.4e} ({r:.3g} of the limit: "
+        f"{'within' if ok else 'over'})"
+        for n, (e, r, ok) in gaps.items()))
+
+
+def _capture(model, params, batch, which, pick):
+    """The inputs of the first call to ``which`` (``flash_mha`` or
+    ``ssd_intra``) in one prefill of ``model`` for which ``pick(args,
+    kw)`` holds, cloned, with its keyword arguments."""
+    from repro_torch.kernels.flash_attention import flash_mha
+    from repro_torch.kernels.ssd_scan import ssd_intra
+    captured = []
+    fn = flash_mha if which == "flash_mha" else ssd_intra
+
+    def capture(*args, **kw):
+        if not captured and pick(args, kw):
+            captured.append(([t.clone() for t in args], kw))
+        return fn(*args, **kw)
+    _prefill_with(model, params, batch,
+                  **{"flash" if which == "flash_mha" else "ssd": capture})
+    return captured[0]
 
 
 def slice_qwen3_static(smi, cfg, params):
@@ -1154,9 +1253,10 @@ def slice_qwen3_static(smi, cfg, params):
     kmodel, pmodel = Model(cfg), Model(cfg, use_kernel=False)
     _, toks = max(batches, key=lambda bt: bt[1].shape[1])
     tok_t = torch.from_numpy(toks).cuda()
-    kernel = _prefill_kv(kmodel, params, tok_t)
-    plain = _prefill_kv(pmodel, params, tok_t)
-    lmax, kmax, vmax = (t.abs().max().item() for t in plain)
+    batch = {"tokens": tok_t}
+    kernel = _prefill_outs(kmodel, params, batch)
+    plain = _prefill_outs(pmodel, params, batch)
+    lmax, kmax, vmax = (t.abs().max().item() for t in plain.values())
     attention = model_lib.attention
 
     def not_causal(q, k, v, **kw):
@@ -1168,29 +1268,25 @@ def slice_qwen3_static(smi, cfg, params):
         calls.append(1)
         o = attention(q, k, v, **kw)
         return torch.zeros_like(o) if len(calls) == cfg.n_layers else o
-    kgap = _kv_gaps(kernel, plain)
+    kgap = _gaps(kernel, plain)
     del kernel
-    controls = {}
-    for label, fn in (("attention not causal", not_causal),
-                      ("the last layer's attention output zeroed",
-                       last_layer_zeroed)):
-        model_lib.attention = fn
-        try:
-            controls[label] = _kv_gaps(_prefill_kv(pmodel, params, tok_t),
-                                       plain)
-        finally:
-            model_lib.attention = attention
+    controls = {label: _gaps(_prefill_with(pmodel, params, batch,
+                                           attention=fn), plain)
+                for label, fn in (("attention not causal", not_causal),
+                                  ("the last layer's attention output "
+                                   "zeroed", last_layer_zeroed))}
     print(f"  prefill {tuple(toks.shape)}, max|logit| {lmax:.4e}, max|k| "
           f"{kmax:.4e}, max|v| {vmax:.4e}; limits: logits {LOGIT_RTOL} x "
           f"max|logit|, K and V {CACHE_TOL} x max + rtol {CACHE_TOL}")
     for label, g in [("kernel", kgap)] + [
             (f"control, plain with {c}", g) for c, g in controls.items()]:
         _print_gaps(label, g)
-    if not (torch.isfinite(plain[0]).all() and kgap[3] and kgap[4]):
+    if not (torch.isfinite(plain["logits"]).all()
+            and all(ok for _, _, ok in kgap.values())):
         raise AssertionError("full-width prefill: kernel vs plain logits or "
                              "K/V over the limit")
     nc, lz = controls.values()
-    if nc[4] or lz[3]:
+    if (nc["K"][2] and nc["V"][2]) or lz["logits"][2]:
         raise AssertionError("a broken attention path passed the limits: "
                              "not causal within the K/V limit, or the last "
                              "layer zeroed within the logits limit")
@@ -1324,21 +1420,30 @@ def main() -> None:
 
     # 8. slice 5: gemma2_9b, chatglm3_6b and mixtral_8x7b at full width
     new = slice_new_configs(smi)
+    torch.cuda.empty_cache()
 
-    # 9. result lines; each kernel's launches are those of its governed
+    # 9. slice 6: zamba2_1p2b, whisper_small and internvl2_26b at full
+    # width
+    last = slice_last_families(smi)
+
+    # 10. result lines; each kernel's launches are those of its governed
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + new["paged_attention"],
-        "ssd_intra": ssd["launches"],
-        "flash_attention": flash["launches"] + new["flash_attention"]}
+        "ssd_intra": ssd["launches"] + last["ssd_intra"],
+        "flash_attention": flash["launches"] + new["flash_attention"]
+        + last["flash_attention"]}
     print(f"[launches] paged_attention {launches['paged_attention']} = "
           f"{paged['launches']} (slice 1, qwen3_4b continuous) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
-          f"ssd_intra {ssd['launches']} (slice 2, mamba2_780m static); "
+          f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
+          f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
+          f"zamba2_1p2b static); "
           f"flash_attention {launches['flash_attention']} = "
           f"{flash['launches']} (slice 3, qwen3_4b static) + "
-          + " + ".join(f"{n} (slice 5, {a} static)"
-                       for a, n in new["flash_by_run"].items()))
+          + " + ".join(f"{n} (slice {sl}, {a} static)"
+                       for sl, runs in ((5, new), (6, last))
+                       for a, n in runs["flash_by_run"].items()))
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:45",
@@ -2017,15 +2122,26 @@ def _fresh_params(cfg):
         time.perf_counter() - t0
 
 
+def _attention_trees(params):
+    """Every attention parameter tree of a model's parameters: the
+    layers' ``attn``, the decoder's ``cross`` (audio), the shared block's
+    ``attn`` (hybrid) and the encoder's ``attn`` (audio)."""
+    return [tree[key] for tree in (params.get("layers", {}),
+                                   params.get("shared", {}),
+                                   params.get("enc_layers", {}))
+            for key in ("attn", "cross") if key in tree]
+
+
 def _slice5_params(cfg):
-    """``_fresh_params`` with every layer's ``wq`` and ``wk`` scaled so
-    that, on the unit-RMS rows the pre-attention norm gives, each q and k
-    entry has variance SCORE_STD and the scores q.k / sqrt(head_dim) have
-    std SCORE_STD."""
+    """``_fresh_params`` with the ``wq`` and ``wk`` of every attention
+    tree (``_attention_trees``) scaled so that, on the unit-RMS rows the
+    pre-attention norm gives, each q and k entry has variance SCORE_STD
+    and the scores q.k / sqrt(head_dim) have std SCORE_STD."""
     params, n_params, secs = _fresh_params(cfg)
-    attn, a = params["layers"]["attn"], math.sqrt(SCORE_STD)
-    attn["wq"].mul_(a * math.sqrt(cfg.n_heads / cfg.d_model))
-    attn["wk"].mul_(a * math.sqrt(cfg.n_kv_heads / cfg.d_model))
+    a = math.sqrt(SCORE_STD)
+    for attn in _attention_trees(params):
+        attn["wq"].mul_(a * math.sqrt(cfg.n_heads / cfg.d_model))
+        attn["wk"].mul_(a * math.sqrt(cfg.n_kv_heads / cfg.d_model))
     return params, n_params, secs
 
 
@@ -2037,21 +2153,23 @@ def slice5_requests(cfg, lens):
         0, cfg.vocab, size=n).tolist()} for i, n in enumerate(lens)]
 
 
-def governed_static_runs(cfg, params, requests, smi):
+def governed_static_runs(cfg, params, requests, smi, per_prefill=None):
     """The governed static agent on the card, the kernel run then the plain
-    run: one committed ``serve_batch`` intent each, flash launched once a
-    layer in the kernel run and no kernel in the plain run, and the same
-    tokens. Returns the kernel run's flash launches and its batches."""
+    run: one committed ``serve_batch`` intent each, the prefill's kernels
+    launched ``per_prefill`` times ({kernel: launches}; by default flash
+    once a layer) in the kernel run and no kernel in the plain run, and
+    the same tokens. Returns the kernel run's launches and its
+    batches."""
     import torch
     lens = [len(r["prompt_tokens"]) for r in requests]
+    per_prefill = per_prefill or {"flash_attention": cfg.n_layers}
     runs = {}
     for label, use_kernel in (("kernel", True), ("plain", False)):
         torch.cuda.reset_peak_memory_stats()
         run = serve_static(cfg, params, requests, use_kernel=use_kernel,
                            new_tokens=SLICE5_NEW_TOKENS)
         ids = [b["intent_id"] for b in run["intents"]]
-        want = dict(_no_launches(),
-                    flash_attention=cfg.n_layers if use_kernel else 0)
+        want = dict(_no_launches(), **(per_prefill if use_kernel else {}))
         print(f"  {label} run: prompts {lens}, {SLICE5_NEW_TOKENS} new "
               f"tokens; serve_batch intents {len(ids)}, committed "
               f"{len(run['commits'] & set(ids))}; launches "
@@ -2065,9 +2183,9 @@ def governed_static_runs(cfg, params, requests, smi):
             raise AssertionError("want one committed serve_batch intent "
                                  "that serves every request")
         if run["launches"] != want:
-            raise AssertionError("the prefill did not launch flash once a "
-                                 "layer (kernel run) or the plain run "
-                                 "launched a kernel")
+            raise AssertionError("the prefill did not launch its kernels "
+                                 f"{per_prefill} (kernel run) or the plain "
+                                 "run launched a kernel")
         for rid, toks in run["tokens"].items():
             if len(toks) != SLICE5_NEW_TOKENS or not all(
                     0 <= t < cfg.vocab for t in toks):
@@ -2077,31 +2195,7 @@ def governed_static_runs(cfg, params, requests, smi):
     _same_tokens(cfg, params, runs["kernel"], runs["plain"], batches)
     print("  kernel and plain runs: identical tokens; " + "; ".join(
         f"{r}: {t}" for r, t in runs["kernel"]["tokens"].items()))
-    return runs["kernel"]["launches"]["flash_attention"], batches
-
-
-def _kv_gaps(got, want, layers=slice(None)):
-    """Max abs diff of logits, K and V from the plain path's ``want`` and
-    whether each is within its limit (logits LOGIT_RTOL x max|logit|; K
-    and V CACHE_TOL x max + rtol CACHE_TOL, slice 3's rule, the max over
-    every layer), over the K/V of ``layers``."""
-    import torch
-    (gl, gk, gv), (wl, wk, wv) = got, want
-    lerr = (gl - wl).abs().max().item()
-    kmax, vmax = wk.abs().max(), wv.abs().max()
-    gk, gv, wk, wv = gk[layers], gv[layers], wk[layers], wv[layers]
-    kerr, verr = (gk - wk).abs(), (gv - wv).abs()
-    return (lerr, kerr.max().item(), verr.max().item(),
-            lerr <= LOGIT_RTOL * wl.abs().max().item(),
-            bool(torch.all(kerr <= CACHE_TOL * (kmax + wk.abs())))
-            and bool(torch.all(verr <= CACHE_TOL * (vmax + wv.abs()))))
-
-
-def _print_gaps(label, g):
-    lerr, kerr, verr, lok, kvok = g
-    print(f"    {label} vs plain: logits max abs diff {lerr:.4e} "
-          f"({'within' if lok else 'over'} the limit), K {kerr:.4e} V "
-          f"{verr:.4e} ({'within' if kvok else 'over'} the limit)")
+    return runs["kernel"]["launches"], batches
 
 
 def _launch_check(out, ref, control=None):
@@ -2135,81 +2229,122 @@ def _hold_launches(name, log, control, unit="launches"):
 def _flash_checker(log):
     """A stand-in for the model's ``flash_mha`` that launches the kernel
     and logs ``_launch_check`` of each batch row against
-    ``flash_mha_plain``; a launch with a window has the plain version
-    without it as its broken control."""
+    ``flash_mha_plain``; the broken control is the plain version without
+    the window where the window masks keys, else with ``causal``
+    flipped."""
     from repro_torch.kernels.flash_attention import (flash_mha,
                                                      flash_mha_plain)
 
     def checked(q, k, v, **kw):
         o = flash_mha(q, k, v, **kw)
-        windowed = kw["window"] < q.shape[1] + k.shape[1]
+        windowed = kw.get("window") is not None \
+            and kw["window"] < q.shape[1] + k.shape[1]
+        broken = (dict(kw, window=None) if windowed else
+                  dict(kw, causal=not kw.get("causal", True)))
         for i in range(q.shape[0]):
             args = (q[i:i + 1], k[i:i + 1], v[i:i + 1])
             ref = flash_mha_plain(*args, **kw)
-            control = flash_mha_plain(*args, **dict(kw, window=None)) \
-                if windowed else None
+            control = flash_mha_plain(*args, **broken)
             log.append(_launch_check(o[i:i + 1], ref, control))
             del ref, control
         return o
     return checked
 
 
-def _routing_recorder():
-    """Wraps ``moe.dispatch_plan`` to keep each call's (top_e, keep), one
-    call a moe layer; returns (the log, a function that puts it back)."""
-    from repro_torch.models import moe as moe_lib
-    plan = moe_lib.dispatch_plan
-    log = []
+def _ssd_checker(log):
+    """A stand-in for the SSD layer's ``ssd_intra`` that launches the
+    kernel and logs ``_launch_check`` of its y and states against
+    ``ssd_intra_plain`` (the worse of the two), the broken control being
+    the plain version with each chunk's last row of x zeroed."""
+    from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
 
-    def recording(top_e, n_experts, cap):
-        out = plan(top_e, n_experts, cap)
-        log.append((top_e.clone(), out[3].clone()))
+    def checked(x, *rest):
+        out = ssd_intra(x, *rest)
+        x0 = x.clone()
+        x0[:, :, -1] = 0
+        checks = [_launch_check(o, r, c) for o, r, c in zip(
+            out[:2], ssd_intra_plain(x, *rest)[:2],
+            ssd_intra_plain(x0, *rest)[:2])]
+        log.append(tuple(max(c[i] for c in checks) for i in range(3)))
         return out
-    moe_lib.dispatch_plan = recording
-
-    def restore():
-        moe_lib.dispatch_plan = plan
-    return log, restore
+    return checked
 
 
-def _prefill_with(model, params, tok_t, flash=None, routing=False):
-    """``_prefill_kv`` with the model's ``flash_mha`` replaced by ``flash``
-    (if given) and, with ``routing``, each moe layer's (top_e, keep)
-    recorded. Returns (logits, K, V) and the routing log."""
-    from repro_torch.models import model as model_lib
-    saved = model_lib.flash_mha
-    log, restore = _routing_recorder() if routing else ([], lambda: None)
-    if flash is not None:
-        model_lib.flash_mha = flash
-    try:
-        return _prefill_kv(model, params, tok_t), log
-    finally:
-        model_lib.flash_mha = saved
-        restore()
-
-
-def hold_prefill(cfg, params, toks, routing=False):
-    """One full-width prefill, kernel path against plain path. Every flash
-    launch is held to its plain version on the same q/k/v, a row of its
-    batch at a time (``_flash_checker``), beside the plain version without
-    the window. Returns the kernel path's and the plain path's (logits, K,
-    V) and, with ``routing``, both paths' routing logs."""
+def _held_batch(cfg, toks):
+    """The held prefill's batch of ``toks`` on the card: the server's, with
+    the audio or vlm frontend's input drawn unit normal from a numpy seed
+    in place of the server's zeros."""
+    import numpy as np
     import torch
+    from repro_torch.serving.server import stub_batch
+    batch, _ = stub_batch(cfg, torch.from_numpy(toks).cuda())
+    rng = np.random.default_rng(SEED + 6)
+    for key in ("frame_embed", "patch_embed"):
+        if key in batch:
+            batch[key] = torch.from_numpy(rng.standard_normal(
+                tuple(batch[key].shape)).astype(np.float32)).cuda()
+    return batch
+
+
+def hold_prefill(cfg, params, batch, per_prefill=None, routing=False):
+    """One full-width prefill of ``batch`` (``_held_batch``), kernel path
+    against plain path: every flash launch held to its plain version on
+    the same q/k/v, a row of its batch at a time (``_flash_checker``);
+    every ``ssd_intra`` launch held likewise (``_ssd_checker``). The
+    prefill must launch ``per_prefill`` ({kernel: launches}; by default
+    flash once a layer). Returns the kernel path's and the plain path's
+    outputs (``_prefill_outs``) and, with ``routing``, both paths' routing
+    logs (kernel, plain)."""
     from repro_torch.models.model import Model
-    tok_t = torch.from_numpy(toks).cuda()
-    plain, prout = _prefill_with(Model(cfg, use_kernel=False), params, tok_t,
-                                 routing=routing)
-    launches = []
-    kernel, krout = _prefill_with(Model(cfg), params, tok_t,
-                                  flash=_flash_checker(launches),
-                                  routing=routing)
-    print(f"  prefill {tuple(toks.shape)}:")
-    if len(launches) != cfg.n_layers * toks.shape[0]:
-        raise AssertionError(f"{cfg.arch_id}: not one flash launch a layer")
-    _hold_launches("flash_mha", launches, "plain without the window",
-                   unit="launch rows (a launch a layer, a row of its batch "
-                   "each)")
+    per_prefill = per_prefill or {"flash_attention": cfg.n_layers}
+    krout, prout = ([], []) if routing else (None, None)
+    plain = _prefill_with(Model(cfg, use_kernel=False), params, batch,
+                          routing=prout)
+    flog, slog = [], []
+    kernel = _prefill_with(Model(cfg), params, batch,
+                           flash=_flash_checker(flog),
+                           ssd=_ssd_checker(slog), routing=krout)
+    rows = batch["tokens"].shape[0]
+    print(f"  prefill {tuple(batch['tokens'].shape)}"
+          + "".join(f", {k} {tuple(v.shape)} unit normal (numpy seed "
+                    f"{SEED + 6})" for k, v in batch.items()
+                    if k != "tokens") + ":")
+    if len(flog) != per_prefill.get("flash_attention", 0) * rows \
+            or len(slog) != per_prefill.get("ssd_intra", 0):
+        raise AssertionError(f"{cfg.arch_id}: {len(flog)} flash launch "
+                             f"rows and {len(slog)} ssd_intra launches, "
+                             f"not {per_prefill} a prefill")
+    if flog:
+        _hold_launches("flash_mha", flog, "plain without the window where "
+                       "it masks keys, else with causal flipped", unit="launch"
+                       " rows (a row of each launch's batch)")
+    if slog:
+        _hold_launches("ssd_intra", slog, "plain with each chunk's last "
+                       "x row zeroed")
     return kernel, plain, (krout, prout)
+
+
+def hold_outputs(cfg, kernel, plain, layers=slice(None), logits=True):
+    """The kernel path's prefill outputs held to the plain path's
+    (``_gaps``): every cache output over ``layers`` and, with ``logits``,
+    the logits. Raises if one is over its limit or the plain logits are
+    not finite."""
+    import torch
+    gaps = _gaps(kernel, plain, layers)
+    if not logits:
+        del gaps["logits"]
+    rest = [n for n in gaps if n != "logits"]
+    print(f"  held: " + (f"the logits (limit {LOGIT_RTOL} x max|logit|) "
+                         f"and " if logits else "")
+          + ", ".join(rest) + ("" if layers == slice(None) else
+                               f" of layers {layers.start}-"
+                               f"{layers.stop - 1}")
+          + f" (limit {CACHE_TOL} x max + rtol {CACHE_TOL})")
+    _print_gaps("kernel", gaps)
+    if not (torch.isfinite(plain["logits"]).all()
+            and all(ok for _, _, ok in gaps.values())):
+        raise AssertionError(f"{cfg.arch_id} prefill: kernel vs plain over "
+                             f"the limit")
 
 
 def slice5_gemma2(smi):
@@ -2219,8 +2354,6 @@ def slice5_gemma2(smi):
     kernel run."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels.flash_attention import flash_mha
-    from repro_torch.models import model as model_lib
     from repro_torch.models.model import INF_WINDOW, Model
     t_slice = time.perf_counter()
     cfg = get_config("gemma2_9b")
@@ -2233,45 +2366,29 @@ def slice5_gemma2(smi):
           f"{cfg.vocab}; {n_params} fp32 params in {secs:.2f} s")
     launches, batches = governed_static_runs(
         cfg, params, slice5_requests(cfg, GEMMA2_PROMPTS), smi)
+    launches = launches["flash_attention"]
 
     # the (2, 4500) prefill, kernel vs plain: the logits and every layer's
     # K/V; the broken control runs the plain path with no window on any
     # layer (the even layers' 4096 replaced by INF_WINDOW)
     _, toks = batches[0]
-    kernel, plain, _ = hold_prefill(cfg, params, toks)
-    kgap = _kv_gaps(kernel, plain)
+    batch = _held_batch(cfg, toks)
+    kernel, plain, _ = hold_prefill(cfg, params, batch)
+    hold_outputs(cfg, kernel, plain)
     del kernel
     pmodel = Model(cfg, use_kernel=False)
     pmodel._window_array = lambda: [INF_WINDOW] * cfg.n_layers
-    cgap = _kv_gaps(_prefill_with(pmodel, params,
-                                  torch.from_numpy(toks).cuda())[0], plain)
-    print(f"  held: the logits (limit {LOGIT_RTOL} x max|logit|) and every "
-          f"layer's K/V (limit {CACHE_TOL} x max + rtol {CACHE_TOL})")
-    _print_gaps("kernel", kgap)
+    cgap = _gaps(_prefill_with(pmodel, params, batch), plain)
     _print_gaps("control, plain without the 4096 window (all layers)", cgap)
-    if not (torch.isfinite(plain[0]).all() and kgap[3] and kgap[4]):
-        raise AssertionError("gemma2 prefill: kernel vs plain over the "
-                             "limit")
-    if cgap[3]:
+    if cgap["logits"][2]:
         raise AssertionError("the plain path without the window met the "
                              "logits limit: the window masks nothing here")
     del plain
     time_static(Model(cfg), params, batches, smi)
 
     # the kernel timed at layer 0's windowed shape in that prefill
-    captured = []
-
-    def capture(q, k, v, **kw):
-        if not captured:
-            captured.append(([t.clone() for t in (q, k, v)], kw))
-        return flash_mha(q, k, v, **kw)
-    model_lib.flash_mha = capture
-    try:
-        Model(cfg).prefill(params, {"tokens": torch.from_numpy(toks).cuda()})
-    finally:
-        model_lib.flash_mha = flash_mha
-    (case, kw), = captured
-    del captured
+    case, kw = _capture(Model(cfg), params, batch, "flash_mha",
+                        lambda a, kw: True)
     if kw["window"] != cfg.window or kw["softcap"] != cfg.attn_softcap:
         raise AssertionError(f"layer 0 called flash_mha with {kw}")
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
@@ -2408,6 +2525,7 @@ def slice5_mixtral(smi):
           f"params in {secs:.2f} s")
     launches, batches = governed_static_runs(
         cfg, params, slice5_requests(cfg, MIXTRAL_PROMPTS), smi)
+    launches = launches["flash_attention"]
 
     # the (2, 4500) prefill, kernel vs plain, with every layer's routing
     # recorded: the K/V are held up to the first layer where the two paths
@@ -2416,7 +2534,8 @@ def slice5_mixtral(smi):
     # 1, the first after an attention and a moe block
     _, toks = batches[0]
     n_tok = toks.size
-    kernel, plain, (krout, prout) = hold_prefill(cfg, params, toks,
+    batch = _held_batch(cfg, toks)
+    kernel, plain, (krout, prout) = hold_prefill(cfg, params, batch,
                                                  routing=True)
     differ = [int((ke != pe).any(-1).sum())
               for (ke, _), (pe, _) in zip(krout, prout)]
@@ -2433,30 +2552,24 @@ def slice5_mixtral(smi):
     if upto < 2:
         raise AssertionError("mixtral: layer 0 routes a token otherwise, so "
                              "no layer after a moe block can be held")
-    kgap = _kv_gaps(kernel, plain, slice(0, upto))
+    print("  " + ("no routing decision differs: the logits are held" if
+                  first is None else f"layer {first} routes {differ[first]} "
+                  f"tokens otherwise: the logits are not held"))
+    hold_outputs(cfg, kernel, plain, slice(0, upto), logits=first is None)
     del kernel
-    print(f"  held: K/V of layers 0-{upto - 1}"
-          + (" and the logits (no routing decision differs)"
-             if first is None else f" (layer {first} routes "
-             f"{differ[first]} tokens otherwise: the logits are not held)"))
-    _print_gaps("kernel", kgap)
-    if not (torch.isfinite(plain[0]).all() and kgap[4]
-            and (first is not None or kgap[3])):
-        raise AssertionError("mixtral prefill: kernel vs plain over the "
-                             "limit")
 
     # broken control: the plain path at a capacity factor that drops
     # nothing (C = N) must move the logits past the limit
     no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
         m, capacity_factor=m.n_experts / m.top_k))
-    control, crout = _prefill_with(Model(no_drop, use_kernel=False), params,
-                                   torch.from_numpy(toks).cuda(),
-                                   routing=True)
-    cgap = _kv_gaps(control, plain)
+    crout = []
+    control = _prefill_with(Model(no_drop, use_kernel=False), params, batch,
+                            routing=crout)
+    cgap = _gaps(control, plain)
     c_dropped = sum(int((~keep).sum()) for _, keep in crout)
     _print_gaps(f"control, plain at capacity factor "
                 f"{no_drop.moe.capacity_factor} ({c_dropped} dropped)", cgap)
-    if c_dropped or cgap[3]:
+    if c_dropped or cgap["logits"][2]:
         raise AssertionError("the no-drop control dropped pairs or met the "
                              "logits limit")
     del control, plain
@@ -2485,6 +2598,291 @@ def slice_new_configs(smi):
     print(f"  slice 5 wall {time.perf_counter() - t0:.2f} s | on {smi}")
     return {"flash_attention": flash + flash_moe, "paged_attention": paged,
             "flash_by_run": {"gemma2_9b": flash, "mixtral_8x7b": flash_moe}}
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the hybrid, audio and vlm families at full width
+# ---------------------------------------------------------------------------
+
+def _print_flash_time(label, case, kw, t, smi):
+    print(f"  flash_mha at {label} q {tuple(case[0].shape)} k/v "
+          f"{tuple(case[1].shape)} {kw}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['flop']} FLOP over the visible pairs, "
+          f"{t['bytes']} B), sdpa on K/V repeated to the query heads "
+          f"{t['library_ms']:.4f} ms | kernel at "
+          f"{t['flop'] / t['ms'] / 1e9:.2f} TFLOP/s | on {smi}")
+
+
+def _slice6_config(name, smi, cfg, per_prefill, prompts, describe,
+                   adjust=None):
+    """The common part of a slice-6 config: fresh scaled weights (then
+    ``adjust(params)``, which returns what it did), the governed kernel
+    and plain runs, the held prefill. Returns (params, the kernel run's
+    launches, its batches, the held batch, the plain path's outputs)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    params, n_params, secs = _slice5_params(cfg)
+    print(f"  {name}: {describe}; {n_params} fp32 params in {secs:.2f} s; "
+          f"wq/wk of {len(_attention_trees(params))} attention tree(s) "
+          f"scaled to score std {SCORE_STD}")
+    if adjust:
+        print(f"  then {adjust(params)}")
+    launches, batches = governed_static_runs(
+        cfg, params, slice5_requests(cfg, prompts), smi,
+        per_prefill=per_prefill)
+    _, toks = batches[0]
+    batch = _held_batch(cfg, toks)
+    kernel, plain, _ = hold_prefill(cfg, params, batch, per_prefill)
+    hold_outputs(cfg, kernel, plain)
+    return params, launches, batches, batch, plain
+
+
+def slice6_zamba2(smi):
+    """zamba2_1p2b at full width (38 mamba2 layers, the shared block after
+    every 6th) through the governed static agent, with a prompt past the
+    shared block's 4096 window. Returns the kernel run's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import Model
+    t_slice = time.perf_counter()
+    cfg = get_config("zamba2_1p2b")
+    s, L, k = cfg.ssm, cfg.n_layers, cfg.hybrid_attn_every
+    per = {"ssd_intra": L, "flash_attention": L // k}
+    params, launches, batches, batch, plain = _slice6_config(
+        "zamba2_1p2b", smi, cfg, per, ZAMBA2_PROMPTS,
+        f"{L} mamba2 layers ({s.expand * cfg.d_model // s.head_dim} heads x"
+        f" {s.head_dim}, d_state {s.d_state}, groups {s.n_groups}, chunk "
+        f"{s.chunk}), the shared block after every {k}th ({L // k} "
+        f"applications, {L % k} layers after the last), heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, window "
+        f"{cfg.window}, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}")
+
+    # broken control: the plain path with no window on the shared block
+    attention = model_lib.attention
+    control = _prefill_with(Model(cfg, use_kernel=False), params, batch,
+                            attention=lambda q, k_, v, **kw: attention(
+                                q, k_, v, **dict(kw, window=None)))
+    cgap = _gaps(control, plain)
+    del control, plain
+    _print_gaps(f"control, plain without the shared {cfg.window} window",
+                cgap)
+    if cgap["logits"][2] and cgap["K"][2] and cgap["V"][2]:
+        raise AssertionError("the plain path without the window met the "
+                             "K/V and logits limits")
+    time_static(Model(cfg), params, batches, smi)
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    case, kw = _capture(Model(cfg), params, batch, "flash_mha",
+                        lambda a, kw: True)
+    t = time_flash_attention(case, flush, window=kw["window"])
+    _print_flash_time("zamba2_1p2b's shared block (its first application)",
+                      case, kw, t, smi)
+    case, _ = _capture(Model(cfg), params, batch, "ssd_intra",
+                       lambda a, kw: True)
+    t = time_ssd_intra(case, flush)
+    print(f"  ssd_intra at zamba2_1p2b's layer 0 x {tuple(case[0].shape)} "
+          f"b/c {tuple(case[3].shape)}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['flop']} FLOP, {t['bytes']} B), "
+          f"yardstick (two batched matmuls with the mask between) "
+          f"{t['yardstick_ms']:.4f} ms | {t['blocks']} | on {smi}")
+    print(f"  zamba2_1p2b peak memory {torch.cuda.max_memory_allocated()} B;"
+          f" wall {time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+def _order_readings(cfg, params, batch, score_std):
+    """How far the held outputs of one prefill of ``batch`` move at these
+    weights, each against the plain path: the kernel path (the held
+    check); the kernel path with every launch replaced by its plain
+    version ``flash_mha_plain`` (the same function at the same call
+    sites); that path with seeded normal noise added to each launch's
+    output, of the std of the kernel's own error at that launch (any
+    perturbation of the kernel's size, in no direction of the kernel's);
+    and the plain path with every attention summed by the online softmax
+    over 64-key tiles (``attention_chunked``)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_mha,
+                                                     flash_mha_plain)
+    from repro_torch.models import layers
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import Model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def noised(q, k, v, **kw):
+        ref = flash_mha_plain(q, k, v, **kw)
+        std = (flash_mha(q, k, v, **kw) - ref).std()
+        return ref + std * torch.randn(ref.shape, generator=gen,
+                                       device=ref.device)
+    plain = _prefill_outs(Model(cfg, use_kernel=False), params, batch)
+    readings = {
+        "kernel path (the held check)": _prefill_outs(Model(cfg), params,
+                                                      batch),
+        "kernel path with flash_mha_plain at every launch": _prefill_with(
+            Model(cfg), params, batch, flash=flash_mha_plain),
+        "flash_mha_plain plus noise of the kernel's error std at every "
+        "launch": _prefill_with(Model(cfg), params, batch, flash=noised)}
+    saved = layers.attention, model_lib.attention
+    layers.attention = model_lib.attention = (
+        lambda q, k, v, **kw: layers.attention_chunked(
+            q, k, v, **dict(kw, kv_chunk=64)))
+    try:
+        readings["plain summed in 64-key tiles"] = _prefill_outs(
+            Model(cfg, use_kernel=False), params, batch)
+    finally:
+        layers.attention, model_lib.attention = saved
+    print(f"  at score std {score_std}, the held outputs of other paths:")
+    for label, out in readings.items():
+        _print_gaps(label, _gaps(out, plain))
+
+
+def _whisper_weights(cfg, params):
+    """Conditions whisper's random weights for the held checks. First
+    every decoder layer's cross ``wk`` is divided by the RMS of the
+    encoder's output on the server's zero frames: ``_slice5_params``
+    scales ``wk`` for unit-RMS rows, as the pre-attention norm leaves
+    them, but the cross-attention's keys come from the encoder's output,
+    which no norm follows (as in the reference), and at init_params'
+    scale their scores have a std near 220, where rows whose top two
+    scores lie within ~0.01 turn on the order of fp32 sums. Then every
+    ``wq`` and ``wk`` is scaled by sqrt(WHISPER_SCORE_STD / SCORE_STD),
+    so that the scores have std WHISPER_SCORE_STD: at SCORE_STD the
+    outputs move by about the held limits under any perturbation of the
+    kernel's size or another order of the attention sums
+    (``_order_readings``, printed at both), so no limit could tell a
+    wrong kernel from the order of sums. Returns what it did."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.server import pad_prompts
+    with torch.no_grad():
+        rms = Model(cfg, use_kernel=False)._encode(params, torch.zeros(
+            (1, cfg.enc_seq, cfg.d_model), device="cuda")).pow(2).mean(
+        ).sqrt().item()
+    params["layers"]["cross"]["wk"].div_(rms)
+    batch = _held_batch(cfg, pad_prompts([
+        r["prompt_tokens"] for r in slice5_requests(cfg, WHISPER_PROMPTS)]))
+    _order_readings(cfg, params, batch, SCORE_STD)
+    f = math.sqrt(WHISPER_SCORE_STD / SCORE_STD)
+    for attn in _attention_trees(params):
+        attn["wq"].mul_(f)
+        attn["wk"].mul_(f)
+    _order_readings(cfg, params, batch, WHISPER_SCORE_STD)
+    return (f"the cross wk divided by the encoder output's RMS on zero "
+            f"frames, {rms:.4f}, then every wq and wk by "
+            f"{1 / f:.4f}: score std {WHISPER_SCORE_STD}")
+
+
+def slice6_whisper(smi):
+    """whisper_small at full width (12 encoder and 12 decoder layers, the
+    encoder over 1500 frames) through the governed static agent on the
+    server's zero frames; the held prefill on unit-normal frames. Returns
+    the kernel run's launches."""
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.model import Model
+    t_slice = time.perf_counter()
+    cfg = get_config("whisper_small")
+    per = {"flash_attention": cfg.n_enc_layers + 2 * cfg.n_layers}
+    params, launches, batches, batch, plain = _slice6_config(
+        "whisper_small", smi, cfg, per, WHISPER_PROMPTS,
+        f"{cfg.n_enc_layers} encoder layers over {cfg.enc_seq} frames and "
+        f"{cfg.n_layers} decoder layers with cross-attention, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff} ({cfg.mlp_activation}, not "
+        f"gated), learned positions, vocab {cfg.vocab}; flash a prefill: "
+        f"{cfg.n_enc_layers} encoder (not causal), {cfg.n_layers} decoder "
+        f"self (causal), {cfg.n_layers} cross (not causal)",
+        adjust=lambda p: _whisper_weights(cfg, p))
+
+    # broken control: the encoder causal on the plain path (the decoder's
+    # self-attention is causal already; the cross-attention runs the
+    # layers module's attention, which stays as it is)
+    attention = model_lib.attention
+    control = _prefill_with(Model(cfg, use_kernel=False), params, batch,
+                            attention=lambda q, k, v, **kw: attention(
+                                q, k, v, **dict(kw, causal=True)))
+    cgap = _gaps(control, plain)
+    del control, plain
+    _print_gaps("control, plain with the encoder causal", cgap)
+    if cgap["logits"][2]:
+        raise AssertionError("the causal encoder met the logits limit")
+    time_static(Model(cfg), params, batches, smi)
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    case, kw = _capture(Model(cfg), params, batch, "flash_mha",
+                        lambda a, kw: a[0].shape[1] != a[1].shape[1])
+    t = time_flash_attention(case, flush, causal=False)
+    _print_flash_time("whisper_small's cross-attention (decoder layer 0)",
+                      case, kw, t, smi)
+    print(f"  whisper_small peak memory {torch.cuda.max_memory_allocated()}"
+          f" B; wall {time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+def slice6_internvl2(smi):
+    """internvl2_26b at full width, depth cut to INTERNVL2_LAYERS layers,
+    through the governed static agent on the server's zero patch
+    embeddings; the held prefill on unit-normal ones. Returns the kernel
+    run's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    t_slice = time.perf_counter()
+    full = get_config("internvl2_26b")
+    cfg = dataclasses.replace(full, n_layers=INTERNVL2_LAYERS)
+    params, launches, batches, batch, plain = _slice6_config(
+        "internvl2_26b", smi, cfg, {"flash_attention": cfg.n_layers},
+        INTERNVL2_PROMPTS,
+        f"{cfg.n_layers} of {full.n_layers} layers (depth cut: the "
+        f"{full.n_params()} fp32 params need "
+        f"{4 * full.n_params() / 1e9:.1f} GB), d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, {cfg.n_frontend_tokens} patch tokens prefixed, "
+        f"untied head, vocab {cfg.vocab}")
+
+    # broken control: the plain path with the patch prefix dropped
+    control = _prefill_with(Model(cfg, use_kernel=False), params, dict(
+        batch, patch_embed=batch["patch_embed"][:, :0]))
+    lerr = (control["logits"] - plain["logits"]).abs().max().item()
+    lok = lerr <= LOGIT_RTOL * plain["logits"].abs().max().item()
+    del control, plain
+    print(f"    control, plain with the patch prefix dropped vs plain: "
+          f"logits {lerr:.4e} ({'within' if lok else 'over'})")
+    if lok:
+        raise AssertionError("the dropped prefix met the logits limit")
+    time_static(Model(cfg), params, batches, smi)
+    print(f"  internvl2_26b peak memory "
+          f"{torch.cuda.max_memory_allocated()} B; wall "
+          f"{time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+def slice_last_families(smi):
+    """Phase 9: zamba2_1p2b, whisper_small and internvl2_26b (24 layers)
+    at full width through the governed static agent, one after another,
+    each one's weights freed before the next. Returns the flash and SSD
+    launches of their governed kernel runs."""
+    import torch
+    print(f"[slice 6] the hybrid, audio and vlm families at full width, "
+          f"fp32 random weights (torch.Generator seed {SEED}) on {smi}")
+    t0 = time.perf_counter()
+    runs = {}
+    for arch, fn in (("zamba2_1p2b", slice6_zamba2),
+                     ("whisper_small", slice6_whisper),
+                     ("internvl2_26b", slice6_internvl2)):
+        runs[arch] = fn(smi)
+        torch.cuda.empty_cache()
+    print(f"  slice 6 wall {time.perf_counter() - t0:.2f} s | on {smi}")
+    return {"flash_attention": sum(r["flash_attention"]
+                                   for r in runs.values()),
+            "ssd_intra": runs["zamba2_1p2b"]["ssd_intra"],
+            "flash_by_run": {a: r["flash_attention"]
+                             for a, r in runs.items()}}
 
 
 def _leaves(tree):

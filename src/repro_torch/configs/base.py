@@ -3,11 +3,11 @@
 Every assigned architecture is a module ``repro_torch.configs.<arch_id>``
 exposing ``CONFIG`` (exact paper/HF numbers) and the registry maps
 ``--arch`` ids to them. ``smoke()`` returns a reduced same-family config
-for CPU tests. The port carries only the architectures it runs so far:
+for CPU tests. The port carries every architecture of ``ARCH_IDS``:
 the dense ``qwen3_4b``, ``gemma2_9b``, ``chatglm3_6b`` and
-``codeqwen15_7b``, the moe ``mixtral_8x7b`` and ``kimi_k2_1t_a32b``, and
-the ssm ``mamba2_780m``; ``get_config`` of another id raises
-``ModuleNotFoundError``.
+``codeqwen15_7b``, the moe ``mixtral_8x7b`` and ``kimi_k2_1t_a32b``, the
+ssm ``mamba2_780m``, the hybrid ``zamba2_1p2b``, the audio
+encoder-decoder ``whisper_small`` and the vlm ``internvl2_26b``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
-"""Dense transformer building blocks, the port of ``models/layers.py``'s
-dense subset: RMSNorm, RoPE, GQA attention (dense reference and chunked
-online softmax), the qk-normed attention projections, the self-attention
-block, the gated MLP and the decode-time KV cache (``cache_update``,
-``decode_attention_block``; the int8 ``kv_quant`` cache is not ported).
+"""Dense transformer building blocks, the port of ``models/layers.py``:
+RMSNorm, RoPE, GQA attention (dense reference and chunked online
+softmax), the qk-normed attention projections, the self-attention and
+cross-attention blocks, the gated MLP and the decode-time KV cache
+(``cache_update``, ``decode_attention_block``; the int8 ``kv_quant``
+cache is not ported).
 
 Plain functions on tensors; params are the nested dicts of
 ``models.params`` in the reference's einsum layouts. The reference's
@@ -199,6 +200,30 @@ def self_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     o = attention(q, k, v, pos_q=positions, pos_k=positions, causal=True,
                   window=window, softcap=cfg.attn_softcap,
                   scale=cfg.attn_logit_scale, kv_chunk=kv_chunk)
+    return attn_out(o, p)
+
+
+def cross_attention_block(x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                          p: Dict[str, torch.Tensor], cfg, *,
+                          positions: torch.Tensor, flash=None
+                          ) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V (B, Sk,
+    Kv, Dh): q from ``x``, keys at ``arange(Sk)``, not causal, no window,
+    the config's softcap. ``flash`` (the model passes ``flash_mha`` in the
+    prefill under ``use_kernel``) computes the attention in place of the
+    plain ``attention``: with every key visible to every query its
+    index-based mask is this position-based one."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = enc_kv
+    if flash is not None:
+        o = flash(q, k, v, causal=False, window=None,
+                  softcap=cfg.attn_softcap)
+    else:
+        pos_k = torch.arange(k.shape[1], device=k.device).expand(
+            k.shape[:2])
+        o = attention(q, k, v, pos_q=positions, pos_k=pos_k, causal=False,
+                      window=None, softcap=cfg.attn_softcap)
     return attn_out(o, p)
 
 

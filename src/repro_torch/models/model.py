@@ -1,21 +1,29 @@
 """The port of ``models/model.py``: the padded vocab, the token embedding
 and the (tied) output head, which the paged serving engine uses; the
-static generation path (``init_cache`` / ``prefill`` / ``decode_step``)
-for the dense family (qwen3, gemma2, chatglm3, codeqwen), the moe family
-(mixtral, kimi; the dense layers with ``models.moe.moe_block`` in place
-of the MLP) and the ssm family (mamba2), which the static serving
-discipline uses; and the training forward and loss (``loss_fn``, with
-the moe aux losses) for the same three families. The parameter trees are
-``models.params.init_params``.
+static generation path (``init_cache`` / ``prefill`` / ``decode_step``),
+which the static serving discipline uses, and the training forward and
+loss (``loss_fn``, with the moe aux losses), for every family of the
+reference:
 
-The layer stack is a Python loop over the layers of the stacked
-``(L, ...)`` layer tree (each leaf ``unbind`` once) where the reference
-runs ``lax.scan``; the caches come back stacked on L as there.
-``use_kernel`` picks the hand-written kernel of each family's prefill: the
-flash-attention kernel for every dense or moe layer's attention, the SSD
-intra-chunk kernel for every mamba2 layer. The loss runs the plain paths
-under autograd whatever ``use_kernel`` says: neither kernel has a
-backward. The other families are not ported yet: their entry points raise.
+* decoder LM — dense (qwen3, gemma2, chatglm3, codeqwen), moe (mixtral,
+  kimi; ``models.moe.moe_block`` in place of the MLP) and vlm (internvl2;
+  the ``patch_embed`` prefix ahead of the tokens);
+* ssm LM (mamba2) — the mamba2 layers;
+* hybrid (zamba2) — segments of mamba2 layers, each followed by ONE
+  shared attention+MLP block, then the remainder layers without it;
+* enc-dec (whisper) — the encoder over ``frame_embed`` plus learned
+  positions, then the decoder with cross-attention to its output.
+
+The parameter trees are ``models.params.init_params``. The layer stacks
+are Python loops over the layers of the stacked ``(L, ...)`` trees (each
+leaf ``unbind`` once) where the reference runs ``lax.scan``; the caches
+come back stacked on L as there. ``use_kernel`` picks the hand-written
+kernel of each prefill: the flash-attention kernel for every attention
+(the dense, moe and vlm layers, the hybrid's shared block, the encoder,
+the decoder's self- and cross-attention), the SSD intra-chunk kernel for
+every mamba2 layer. Decode runs the plain attention. The loss runs the
+plain paths under autograd whatever ``use_kernel`` says: neither kernel
+has a backward. An unknown family raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -34,11 +42,12 @@ from ..kernels.flash_attention import flash_mha
 from . import ssm as ssm_lib
 from .moe import moe_block
 from .layers import (attention, attn_out, attn_project_qkv,
-                     decode_attention_block, mlp_block, rmsnorm,
-                     self_attention_block)
+                     cross_attention_block, decode_attention_block,
+                     mlp_block, rmsnorm, self_attention_block)
 from .params import padded_vocab, unstack_layers
 
 INF_WINDOW = 1 << 30  # "no window" sentinel for per-layer window arrays
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 class Model:
@@ -66,7 +75,10 @@ class Model:
         if cfg.pos_embedding == "learned":
             s = tokens.shape[1]
             if isinstance(pos0, int):
-                pe = params["pos_embed"][pos0:pos0 + s][None]
+                # the reference's decode slices at a traced position, and
+                # its dynamic_slice clamps the start into [0, rows - s]
+                start = min(max(pos0, 0), params["pos_embed"].shape[0] - s)
+                pe = params["pos_embed"][start:start + s][None]
             else:
                 idx = pos0.reshape(-1, 1) + torch.arange(s, device=x.device)
                 pe = params["pos_embed"][idx]
@@ -87,12 +99,12 @@ class Model:
             logits = logits.masked_fill(pad, -1e30)
         return logits
 
-    def _static_family(self, what: str) -> None:
-        if self.cfg.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(
-                f"Model.{what}: family {self.cfg.family!r} is not ported "
-                f"yet (the port's static path and loss serve the dense, moe "
-                f"and ssm families)")
+    def _family(self) -> str:
+        """The config's family; an unknown one raises ``ValueError``, as
+        the reference's dispatch does where it finds no branch."""
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(self.cfg.family)
+        return self.cfg.family
 
     def _ffn(self, h: torch.Tensor, lp):
         """The layer's feed-forward: the moe block (with its aux losses)
@@ -104,7 +116,8 @@ class Model:
     def _window_array(self) -> List[int]:
         """Each layer's attention window; INF_WINDOW where there is none,
         so that the layer functions always get a window (and the decode
-        cache is always written at the ring-buffer slot ``cur % S``)."""
+        cache is always written at the ring-buffer slot ``cur % S``). The
+        hybrid's window belongs to its shared block, not to its layers."""
         cfg = self.cfg
         L = cfg.n_layers
         if cfg.local_global_pattern:  # gemma2: even layers local, odd global
@@ -113,6 +126,21 @@ class Model:
         if cfg.window is not None and cfg.family != "hybrid":
             return [cfg.window] * L
         return [INF_WINDOW] * L
+
+    def _prefill_attention(self, q, k, v, positions, *, causal: bool,
+                           window, softcap, scale=None, kv_chunk: int = 1024,
+                           use_kernel: bool = None) -> torch.Tensor:
+        """A prefill's self-attention over ``positions`` (``arange(S)`` in
+        every row): the flash kernel under ``use_kernel`` (default: the
+        model's; the positions are the indices, so its index-based mask
+        is the reference's position-based one), else the plain
+        ``attention``."""
+        if self.use_kernel if use_kernel is None else use_kernel:
+            return flash_mha(q, k, v, causal=causal, window=window,
+                             softcap=softcap, scale=scale)
+        return attention(q, k, v, pos_q=positions, pos_k=positions,
+                         causal=causal, window=window, softcap=softcap,
+                         scale=scale, kv_chunk=kv_chunk)
 
     # -- caches -----------------------------------------------------------------
     def cache_len(self, seq_len: int) -> int:
@@ -123,37 +151,40 @@ class Model:
 
     def init_cache(self, batch: int, seq_len: int, device=None
                    ) -> Dict[str, Any]:
-        """Zeroed decode cache (reference ``init_cache``): the dense and moe
-        families' K/V of ``cache_len(seq_len)`` slots a layer with
-        ``pos = -1`` (empty) in every slot; the ssm family's states
-        (``seq_len`` unused). ``device=None`` means the card."""
-        self._static_family("init_cache")
+        """Zeroed decode cache (reference ``init_cache``): K/V of
+        ``cache_len(seq_len)`` slots a layer with ``pos = -1`` (empty) in
+        every slot for the dense, moe, vlm and audio families; the ssm
+        states for the ssm and hybrid families; the hybrid's shared block
+        K/V of ``min(window or seq_len, seq_len)`` slots for each of its
+        ``n_layers // hybrid_attn_every`` applications; the audio
+        family's encoder K/V (``cross_k`` / ``cross_v``, zeros of
+        ``enc_seq`` rows a layer). ``device=None`` means the card."""
+        family = self._family()
         dev = resolve_device(device)
         cfg = self.cfg
-        if cfg.family != "ssm":
-            L, cl = cfg.n_layers, self.cache_len(seq_len)
-            shape = (L, batch, cl, cfg.n_kv_heads, cfg.head_dim)
-            return {"attn": {
-                "k": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-                "pos": torch.full((L, cl), -1, dtype=torch.int32,
-                                  device=dev)}}
-        s = cfg.ssm
-        inner = s.expand * cfg.d_model
-        nheads = inner // s.head_dim
-        conv_dim = inner + 2 * s.n_groups * s.d_state
         L = cfg.n_layers
-        return {"ssm": {
-            "state": torch.zeros((L, batch, nheads, s.head_dim, s.d_state),
-                                 dtype=torch.float32, device=dev),
-            "conv": torch.zeros((L, batch, conv_dim, s.d_conv - 1),
-                                dtype=self.dtype, device=dev)}}
+        kv = functools.partial(_kv_cache, batch=batch, kv=cfg.n_kv_heads,
+                               dh=cfg.head_dim, dtype=self.dtype, device=dev)
+        if family in ("dense", "moe", "vlm", "audio"):
+            cache = {"attn": kv(L, self.cache_len(seq_len))}
+        else:
+            cache = {"ssm": _ssm_cache(cfg, L, batch, self.dtype, dev)}
+        if family == "hybrid":
+            cache["shared_attn"] = kv(L // cfg.hybrid_attn_every,
+                                      min(cfg.window or seq_len, seq_len))
+        if family == "audio":
+            shape = (L, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim)
+            cache["cross_k"] = torch.zeros(shape, dtype=self.dtype,
+                                           device=dev)
+            cache["cross_v"] = torch.zeros(shape, dtype=self.dtype,
+                                           device=dev)
+        return cache
 
-    # -- prefill / decode -------------------------------------------------------
+    # -- dense / moe / vlm --------------------------------------------------------
     def _dense_prefill(self, params, x: torch.Tensor, kv_chunk: int,
                        extra_cache: int):
-        """The dense (or moe) layers and the final norm over x (B, S, D),
-        positions ``arange(S)`` in every row. Returns (x, the K/V
+        """The dense (or moe, or vlm) layers and the final norm over x (B,
+        S, D), positions ``arange(S)`` in every row. Returns (x, the K/V
         cache)."""
         cfg = self.cfg
         B, S = x.shape[:2]
@@ -164,52 +195,54 @@ class Model:
                            self._window_array()):
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
             q, k, v = attn_project_qkv(h, lp["attn"], cfg, positions)
-            if self.use_kernel:
-                # positions are the indices here, so the kernel's
-                # index-based mask is the reference's position-based one
-                o = flash_mha(q, k, v, causal=True, window=win,
-                              softcap=cfg.attn_softcap,
-                              scale=cfg.attn_logit_scale)
-            else:
-                o = attention(q, k, v, pos_q=positions, pos_k=positions,
-                              causal=True, window=win,
-                              softcap=cfg.attn_softcap,
-                              scale=cfg.attn_logit_scale, kv_chunk=kv_chunk)
+            o = self._prefill_attention(
+                q, k, v, positions, causal=True, window=win,
+                softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale,
+                kv_chunk=kv_chunk)
             x = x + attn_out(o, lp["attn"])
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
             x = x + self._ffn(h, lp)[0]
             kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
-        attn_cache = {n: torch.stack([c[n] for c in kvs])
-                      for n in ("k", "v", "pos")}
-        return x, _pad_kv(attn_cache, extra_cache, cfg)
+        return x, _pad_kv(_stack_kv(kvs), extra_cache, cfg)
 
     def _dense_decode(self, params, cache, x: torch.Tensor, cur: int):
-        """One decode step of the dense (or moe) layers from ``cache``.
-        Returns (x after the final norm, the new K/V cache)."""
+        """One decode step of the dense (or moe, vlm or audio decoder)
+        layers from ``cache``; the audio decoder's layers attend the
+        cache's encoder K/V after their self-attention. Returns (x after
+        the final norm, the new K/V cache)."""
         cfg = self.cfg
+        L = cfg.n_layers
+        crosses = (zip(cache["cross_k"].unbind(0),
+                       cache["cross_v"].unbind(0))
+                   if cfg.family == "audio" else [None] * L)
         new = []
-        for lp, lc, win in zip(
+        for lp, lc, win, cross in zip(
                 unstack_layers(params["layers"]),
                 unstack_layers(cache["attn"]),
-                self._window_array()):
+                self._window_array(), crosses):
             h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
             h, new_c = decode_attention_block(h, lp["attn"], cfg, cache=lc,
                                               cur=cur, window=win)
             x = x + h
+            if cross is not None:
+                hq = rmsnorm(x, lp["ln_x"], cfg.rmsnorm_eps)
+                pos_q = torch.full((x.shape[0], 1), cur, device=x.device)
+                x = x + cross_attention_block(hq, cross, lp["cross"], cfg,
+                                              positions=pos_q)
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
             x = x + self._ffn(h, lp)[0]
             new.append(new_c)
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
-        return x, {n: torch.stack([c[n] for c in new])
-                   for n in ("k", "v", "pos")}
+        return x, _stack_kv(new)
 
     def _decoder_stack(self, params, x: torch.Tensor,
                        positions: torch.Tensor, *, remat: str,
                        kv_chunk: int):
-        """The training forward of the dense (or moe) layers and the final
-        norm over x (B, S, D), on the plain attention path. Returns (x,
-        the moe aux losses summed over the layers; zeros without moe)."""
+        """The training forward of the dense (or moe, or vlm) layers and
+        the final norm over x (B, S, D), on the plain attention path.
+        Returns (x, the moe aux losses summed over the layers; zeros
+        without moe)."""
         cfg = self.cfg
 
         def body(x, aux_lb, aux_z, lp, win):
@@ -233,16 +266,16 @@ class Model:
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         return x, {"aux_lb": aux_lb, "aux_z": aux_z}
 
-    def _ssm_stack(self, params, x: torch.Tensor, cache=None, *,
-                   remat: str = "none", use_kernel: bool = None):
-        """The mamba2 layers and the final norm over x (B, S, D): a prefill
-        when ``cache`` is None, else one decode step from ``cache``.
-        ``use_kernel`` (default: the model's) picks the SSD kernel or its
-        plain version; ``remat`` recomputes each layer in the backward.
-        Returns (x, the new per-layer states stacked on L)."""
+    # -- ssm and hybrid -----------------------------------------------------------
+    def _mamba_layers(self, x: torch.Tensor, lps, olds, *, remat: str,
+                      use_kernel: bool):
+        """The mamba2 layers ``lps`` (layer trees) over x (B, S, D): a
+        prefill where ``olds`` holds (None, None) for each, else one
+        decode step from each layer's (state, conv). ``use_kernel`` picks
+        the SSD kernel or its plain version; ``remat`` recomputes each
+        layer in the backward. Returns (x, the new states, the new conv
+        states)."""
         cfg = self.cfg
-        if use_kernel is None:
-            use_kernel = self.use_kernel
 
         def body(x, lp, state, conv):
             kw = {} if state is None else dict(
@@ -253,39 +286,254 @@ class Model:
             return x + h, new
 
         body = _maybe_remat(body, remat)
-        old = ([(None, None)] * cfg.n_layers if cache is None else
-               zip(cache["ssm"]["state"].unbind(0),
-                   cache["ssm"]["conv"].unbind(0)))
         states, convs = [], []
-        for lp, (state, conv) in zip(unstack_layers(params["layers"]), old):
+        for lp, (state, conv) in zip(lps, olds):
             x, (s_new, c_new) = body(x, lp, state, conv)
             states.append(s_new)
             convs.append(c_new)
+        return x, states, convs
+
+    def _ssm_stack(self, params, x: torch.Tensor, cache=None, *,
+                   remat: str = "none", use_kernel: bool = None):
+        """The mamba2 layers and the final norm over x (B, S, D): a prefill
+        when ``cache`` is None, else one decode step from ``cache``.
+        ``use_kernel`` defaults to the model's. Returns (x, the new
+        per-layer states stacked on L)."""
+        cfg = self.cfg
+        x, states, convs = self._mamba_layers(
+            x, unstack_layers(params["layers"]),
+            _ssm_olds(cache, cfg.n_layers), remat=remat,
+            use_kernel=self.use_kernel if use_kernel is None else use_kernel)
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         return x, {"state": torch.stack(states), "conv": torch.stack(convs)}
+
+    def _hybrid_segments(self, params, x: torch.Tensor, cache, shared, *,
+                         remat: str = "none", use_kernel: bool):
+        """The zamba2 layout over x: ``n_layers // hybrid_attn_every``
+        segments of ``hybrid_attn_every`` mamba2 layers, each followed by
+        the shared attention+MLP block, then the remainder layers with no
+        shared block after them; then the final norm. ``shared(h, ap,
+        app)`` is the shared block's attention on the normed ``h`` with
+        the block's attention params ``ap`` at application ``app``: it
+        returns (its output, what the caller collects). ``cache`` (None in
+        a prefill) gives the layers' (state, conv) for a decode step;
+        ``remat`` wraps only the mamba layers, as the reference's does.
+        Returns (x, the new ssm cache, the collected list)."""
+        cfg = self.cfg
+        L, k = cfg.n_layers, cfg.hybrid_attn_every
+        n_seg = L // k
+        sp = params["shared"]
+        ap = {n: t[0] for n, t in sp["attn"].items()}
+        mp = {n: t[0] for n, t in sp["mlp"].items()}
+        lps = unstack_layers(params["layers"])
+        olds = _ssm_olds(cache, L)
+        states, convs, collected = [], [], []
+        for seg in range(n_seg + 1):
+            part = slice(seg * k, (seg + 1) * k if seg < n_seg else L)
+            x, st, cv = self._mamba_layers(x, lps[part], olds[part],
+                                           remat=remat,
+                                           use_kernel=use_kernel)
+            states += st
+            convs += cv
+            if seg == n_seg:
+                break
+            h = rmsnorm(x, sp["ln1"][0], cfg.rmsnorm_eps)
+            h, out = shared(h, ap, seg)
+            collected.append(out)
+            x = x + h
+            h = rmsnorm(x, sp["ln2"][0], cfg.rmsnorm_eps)
+            x = x + mlp_block(h, mp, cfg)
+        x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+        return x, {"state": torch.stack(states),
+                   "conv": torch.stack(convs)}, collected
+
+    def _hybrid_stack(self, params, x: torch.Tensor,
+                      positions: torch.Tensor, *, remat: str,
+                      kv_chunk: int):
+        """The training forward of the hybrid family over x (B, S, D), on
+        the plain paths. Returns x after the final norm."""
+        cfg = self.cfg
+        win = cfg.window or INF_WINDOW
+
+        def shared(h, ap, _):
+            return self_attention_block(h, ap, cfg, positions=positions,
+                                        window=win, kv_chunk=kv_chunk), None
+        return self._hybrid_segments(params, x, None, shared, remat=remat,
+                                     use_kernel=False)[0]
+
+    def _hybrid_prefill(self, params, x: torch.Tensor, kv_chunk: int,
+                        extra_cache: int):
+        """The hybrid prefill over x (B, S, D), positions ``arange(S)``:
+        each mamba2 layer's SSD through the SSD kernel and each shared
+        block's attention through the flash kernel (causal, the config's
+        window) under ``use_kernel``. Returns (x, the cache: every layer's
+        ssm states, and each application's last ``min(window or S, S)``
+        K/V)."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        wl = min(cfg.window or S, S)
+
+        def shared(h, ap, _):
+            q, k, v = attn_project_qkv(h, ap, cfg, positions)
+            o = self._prefill_attention(
+                q, k, v, positions, causal=True,
+                window=cfg.window or INF_WINDOW, softcap=cfg.attn_softcap,
+                kv_chunk=kv_chunk)
+            return attn_out(o, ap), _collect_kv(k, v, wl, positions,
+                                                self.dtype)
+        x, ssm_cache, kvs = self._hybrid_segments(
+            params, x, None, shared, use_kernel=self.use_kernel)
+        return x, {"ssm": ssm_cache,
+                   "shared_attn": _pad_kv(_stack_kv(kvs), extra_cache, cfg)}
+
+    def _hybrid_decode(self, params, cache, x: torch.Tensor, cur: int):
+        """One hybrid decode step from ``cache``; the shared block writes
+        its application's K/V at the ring-buffer slot. Returns (x after
+        the final norm, the new cache)."""
+        cfg = self.cfg
+        apps = unstack_layers(cache["shared_attn"])
+
+        def shared(h, ap, seg):
+            return decode_attention_block(h, ap, cfg, cache=apps[seg],
+                                          cur=cur,
+                                          window=cfg.window or INF_WINDOW)
+        x, ssm_cache, kvs = self._hybrid_segments(
+            params, x, cache, shared, use_kernel=self.use_kernel)
+        return x, {"ssm": ssm_cache, "shared_attn": _stack_kv(kvs)}
+
+    # -- encoder-decoder ------------------------------------------------------------
+    def _encode(self, params, frames: torch.Tensor, *, remat: str = "none",
+                use_kernel: bool = False) -> torch.Tensor:
+        """The encoder over ``frames`` (B, enc_seq, D) plus ``enc_pos``:
+        not causal self-attention (through the flash kernel with
+        ``use_kernel``) and the MLP in every layer; no final norm, as in
+        the reference."""
+        cfg = self.cfg
+        x = frames.to(self.dtype) + params["enc_pos"][None].to(self.dtype)
+        B, S = x.shape[:2]
+        pos = torch.arange(S, device=x.device).expand(B, S)
+
+        def body(x, lp):
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            q, k, v = attn_project_qkv(h, lp["attn"], cfg, pos)
+            o = self._prefill_attention(q, k, v, pos, causal=False,
+                                        window=None, softcap=None,
+                                        use_kernel=use_kernel)
+            x = x + attn_out(o, lp["attn"])
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            return x + mlp_block(h, lp["mlp"], cfg)
+
+        body = _maybe_remat(body, remat)
+        for lp in unstack_layers(params["enc_layers"]):
+            x = body(x, lp)
+        return x
+
+    def _encdec_decoder(self, params, x: torch.Tensor,
+                        enc_out: torch.Tensor, positions: torch.Tensor, *,
+                        remat: str, kv_chunk: int) -> torch.Tensor:
+        """The training forward of the decoder over x (B, S, D) against
+        the encoder output, on the plain paths. Returns x after the final
+        norm."""
+        cfg = self.cfg
+
+        def body(x, lp):
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            x = x + self_attention_block(h, lp["attn"], cfg,
+                                         positions=positions,
+                                         window=INF_WINDOW,
+                                         kv_chunk=kv_chunk)
+            h = rmsnorm(x, lp["ln_x"], cfg.rmsnorm_eps)
+            ek = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wk"])
+            ev = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wv"])
+            x = x + cross_attention_block(h, (ek, ev), lp["cross"], cfg,
+                                          positions=positions)
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            return x + mlp_block(h, lp["mlp"], cfg)
+
+        body = _maybe_remat(body, remat)
+        for lp in unstack_layers(params["layers"]):
+            x = body(x, lp)
+        return rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+
+    def _encdec_prefill(self, params, x: torch.Tensor,
+                        enc_out: torch.Tensor, kv_chunk: int,
+                        extra_cache: int):
+        """The decoder prefill over x (B, S, D), positions ``arange(S)``:
+        causal self-attention, then cross-attention to ``enc_out @
+        cross.wk / wv``, each through the flash kernel under
+        ``use_kernel``. Returns (x after the final norm, the cache: every
+        layer's self K/V and encoder K/V)."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        cl = self.cache_len(S)
+        flash = flash_mha if self.use_kernel else None
+        kvs, cks, cvs = [], [], []
+        for lp in unstack_layers(params["layers"]):
+            h = rmsnorm(x, lp["ln1"], cfg.rmsnorm_eps)
+            q, k, v = attn_project_qkv(h, lp["attn"], cfg, positions)
+            o = self._prefill_attention(q, k, v, positions, causal=True,
+                                        window=None, softcap=None,
+                                        kv_chunk=kv_chunk)
+            x = x + attn_out(o, lp["attn"])
+            h = rmsnorm(x, lp["ln_x"], cfg.rmsnorm_eps)
+            ek = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wk"])
+            ev = torch.einsum("bsd,dhk->bshk", enc_out, lp["cross"]["wv"])
+            x = x + cross_attention_block(h, (ek, ev), lp["cross"], cfg,
+                                          positions=positions, flash=flash)
+            h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
+            x = x + mlp_block(h, lp["mlp"], cfg)
+            kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
+            cks.append(ek.to(self.dtype))
+            cvs.append(ev.to(self.dtype))
+        x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
+        return x, {"attn": _pad_kv(_stack_kv(kvs), extra_cache, cfg),
+                   "cross_k": torch.stack(cks), "cross_v": torch.stack(cvs)}
+
+    # -- entry points ---------------------------------------------------------------
+    def _with_prefix(self, params, batch) -> torch.Tensor:
+        """The embedded tokens, behind the vlm family's ``patch_embed``
+        (B, n_frontend_tokens, D) prefix."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            x = torch.cat([batch["patch_embed"].to(self.dtype), x], dim=1)
+        return x
 
     def loss_fn(self, params, batch: Dict[str, torch.Tensor], *,
                 remat: str = "none", kv_chunk: int = 1024):
         """Mean next-token cross-entropy of ``batch`` (``tokens`` and
-        ``labels``, (B, S); labels below 0 are masked). Returns (loss,
-        {"loss": loss}); with moe the loss adds ``0.01 * aux_lb / L +
-        1e-3 * aux_z / L`` and the metrics keep the cross-entropy as
-        ``loss`` beside ``aux_lb``, as the reference's. ``remat`` is
-        ``none``, ``dots`` (matmul outputs saved, the rest recomputed) or
-        ``full`` (each layer recomputed in the backward)."""
-        self._static_family("loss_fn")
+        ``labels``, (B, S); labels below 0 are masked; ``patch_embed`` for
+        vlm, whose prefix positions get no logits; ``frame_embed`` for
+        audio). Returns (loss, {"loss": loss}); with moe the loss adds
+        ``0.01 * aux_lb / L + 1e-3 * aux_z / L`` and the metrics keep the
+        cross-entropy as ``loss`` beside ``aux_lb``, as the reference's.
+        ``remat`` is ``none``, ``dots`` (matmul outputs saved, the rest
+        recomputed) or ``full`` (each layer recomputed in the
+        backward)."""
+        family = self._family()
         cfg = self.cfg
-        tokens, labels = batch["tokens"], batch["labels"]
-        x = self._embed(params, tokens)
-        if cfg.family == "ssm":
-            x, _ = self._ssm_stack(params, x, remat=remat,
-                                   use_kernel=False)
-        else:
-            positions = torch.arange(x.shape[1], device=x.device).expand(
-                x.shape[:2])
+        x = self._with_prefix(params, batch)
+        n_front = x.shape[1] - batch["tokens"].shape[1]
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[:2])
+        aux = None
+        if family in ("dense", "moe", "vlm"):
             x, aux = self._decoder_stack(params, x, positions, remat=remat,
                                          kv_chunk=kv_chunk)
-        loss = softmax_xent(self._logits(params, x), labels)
+        elif family == "ssm":
+            x, _ = self._ssm_stack(params, x, remat=remat,
+                                   use_kernel=False)
+        elif family == "hybrid":
+            x = self._hybrid_stack(params, x, positions, remat=remat,
+                                   kv_chunk=kv_chunk)
+        else:  # audio
+            enc_out = self._encode(params, batch["frame_embed"],
+                                   remat=remat)
+            x = self._encdec_decoder(params, x, enc_out, positions,
+                                     remat=remat, kv_chunk=kv_chunk)
+        loss = softmax_xent(self._logits(params, x[:, n_front:]),
+                            batch["labels"])
         metrics = {"loss": loss}
         if cfg.moe is not None:
             loss = loss + 0.01 * aux["aux_lb"] / cfg.n_layers \
@@ -296,33 +544,48 @@ class Model:
     def prefill(self, params, batch: Dict[str, torch.Tensor], *,
                 kv_chunk: int = 1024, extra_cache: int = 0):
         """Full-sequence forward that also fills a decode cache. Returns
-        (last-token logits (B, 1, V_pad), cache). ``extra_cache`` reserves
-        cache slots for the decode steps that follow (serving path);
-        ``kv_chunk`` is the plain attention's chunk above
-        ``DENSE_ATTN_MAX_KV`` keys. With ``use_kernel`` each dense layer's
-        attention runs the flash kernel once, each ssm layer's SSD the
-        intra-chunk kernel once. The ssm family has no attention cache.
-        """
-        self._static_family("prefill")
-        x = self._embed(params, batch["tokens"])
-        if self.cfg.family != "ssm":
-            x, cache = self._dense_prefill(params, x, kv_chunk, extra_cache)
-            return self._logits(params, x[:, -1:]), {"attn": cache}
-        x, ssm_cache = self._ssm_stack(params, x)
-        return self._logits(params, x[:, -1:]), {"ssm": ssm_cache}
+        (last-token logits (B, 1, V_pad), cache). ``batch`` holds
+        ``tokens`` (B, S), and ``patch_embed`` for vlm (prefixed: its
+        positions come first) or ``frame_embed`` for audio (the encoder's
+        input). ``extra_cache`` reserves cache slots for the decode steps
+        that follow (serving path); ``kv_chunk`` is the plain attention's
+        chunk above ``DENSE_ATTN_MAX_KV`` keys. With ``use_kernel`` each
+        attention runs the flash kernel once and each mamba2 layer's SSD
+        the intra-chunk kernel once."""
+        family = self._family()
+        x = self._with_prefix(params, batch)
+        if family in ("dense", "moe", "vlm"):
+            x, attn_cache = self._dense_prefill(params, x, kv_chunk,
+                                                extra_cache)
+            cache = {"attn": attn_cache}
+        elif family == "ssm":
+            x, ssm_cache = self._ssm_stack(params, x)
+            cache = {"ssm": ssm_cache}
+        elif family == "hybrid":
+            x, cache = self._hybrid_prefill(params, x, kv_chunk,
+                                            extra_cache)
+        else:  # audio
+            enc_out = self._encode(params, batch["frame_embed"],
+                                   use_kernel=self.use_kernel)
+            x, cache = self._encdec_prefill(params, x, enc_out, kv_chunk,
+                                            extra_cache)
+        return self._logits(params, x[:, -1:]), cache
 
     def decode_step(self, params, cache, tokens: torch.Tensor, cur):
         """One decode step. tokens (B, 1); ``cur`` is the position of the
-        tokens (an int; unused by the ssm family). Returns (logits
-        (B, 1, V_pad), new cache); the given cache is not modified."""
-        self._static_family("decode_step")
+        tokens (an int; unused by the ssm layers; for vlm it counts the
+        prefix). Returns (logits (B, 1, V_pad), new cache); the given
+        cache is not modified."""
+        family = self._family()
         x = self._embed(params, tokens, pos0=int(cur))
         new_cache = dict(cache)
-        if self.cfg.family != "ssm":
+        if family == "ssm":
+            x, new_cache["ssm"] = self._ssm_stack(params, x, cache)
+        elif family == "hybrid":
+            x, new_cache = self._hybrid_decode(params, cache, x, int(cur))
+        else:
             x, new_cache["attn"] = self._dense_decode(params, cache, x,
                                                       int(cur))
-        else:
-            x, new_cache["ssm"] = self._ssm_stack(params, x, cache)
         return self._logits(params, x), new_cache
 
 
@@ -363,6 +626,46 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
                       labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def _kv_cache(n: int, slots: int, *, batch: int, kv: int, dh: int, dtype,
+              device) -> Dict[str, torch.Tensor]:
+    """Empty K/V caches of ``n`` layers (or applications): k/v (n, batch,
+    slots, kv, dh) zeros, pos (n, slots) all -1."""
+    shape = (n, batch, slots, kv, dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((n, slots), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def _ssm_cache(cfg, L: int, batch: int, dtype, device
+               ) -> Dict[str, torch.Tensor]:
+    """Zeroed mamba2 states of ``L`` layers: the fp32 SSM state and the
+    conv state."""
+    s = cfg.ssm
+    inner = s.expand * cfg.d_model
+    nheads = inner // s.head_dim
+    conv_dim = inner + 2 * s.n_groups * s.d_state
+    return {"state": torch.zeros((L, batch, nheads, s.head_dim, s.d_state),
+                                 dtype=torch.float32, device=device),
+            "conv": torch.zeros((L, batch, conv_dim, s.d_conv - 1),
+                                dtype=dtype, device=device)}
+
+
+def _ssm_olds(cache, L: int) -> List[Any]:
+    """Each layer's (state, conv) from ``cache``; (None, None) for each of
+    the ``L`` layers of a prefill (``cache`` None)."""
+    if cache is None:
+        return [(None, None)] * L
+    return list(zip(cache["ssm"]["state"].unbind(0),
+                    cache["ssm"]["conv"].unbind(0)))
+
+
+def _stack_kv(kvs: List[Dict[str, torch.Tensor]]
+              ) -> Dict[str, torch.Tensor]:
+    """Per-layer K/V caches stacked on a leading layer axis."""
+    return {n: torch.stack([c[n] for c in kvs]) for n in ("k", "v", "pos")}
 
 
 def _collect_kv(k, v, cl, positions, dtype) -> Dict[str, torch.Tensor]:

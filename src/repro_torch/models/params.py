@@ -10,15 +10,18 @@ transposed layouts, so one set of values runs on both sides.
   and ``params_to_numpy`` carries a tree of tensors back.
 * ``tree_map`` / ``tree_leaves`` walk such trees (and the optimizers'
   state trees) in the order of JAX's dict flattening: sorted keys.
-* ``init_params`` is the port's own initializer, for the dense, the moe
-  and the ssm families. It follows the reference's rule: normal times
-  ``1/sqrt(shape[-2])`` (so ``wq``'s scale comes from ``H``, not ``D``),
-  the embedding at scale 1.0, norms at zero; mamba's ``conv_w`` at scale
-  0.5, ``A_log`` and ``dt_bias`` at zero, ``D`` at one. The moe family's
-  layers hold ``moe`` (router, experts and shared experts) where the
-  dense family's hold ``mlp``. Its numbers differ
-  from the reference's (another generator); only the rule and the tree
-  are the same.
+* ``init_params`` is the port's own initializer, for all six families.
+  It follows the reference's rule: normal times ``1/sqrt(shape[-2])``
+  (so ``wq``'s scale comes from ``H``, not ``D``), the embedding at scale
+  1.0, norms at zero; mamba's ``conv_w`` at scale 0.5, ``A_log`` and
+  ``dt_bias`` at zero, ``D`` at one; learned positions (``pos_embed``,
+  the encoder's ``enc_pos``) at scale 0.02. The moe family's layers hold
+  ``moe`` (router, experts and shared experts) where the dense and vlm
+  families' hold ``mlp``; the hybrid family adds ``shared``, one
+  attention+MLP block with a leading axis of 1; the audio family adds
+  ``enc_layers`` and ``enc_pos``, and its decoder layers hold ``ln_x``
+  and ``cross``. Its numbers differ from the reference's (another
+  generator); only the rule and the tree are the same.
 """
 from __future__ import annotations
 
@@ -134,32 +137,57 @@ def _init_mamba(cfg: ArchConfig, L: int, g, device
             "w_out": _normal((L, inner, D), g, device)}
 
 
+def _init_decoder(cfg: ArchConfig, L: int, g, device
+                  ) -> Dict[str, torch.Tensor]:
+    """Stacked decoder blocks of the dense, moe and vlm families."""
+    D = cfg.d_model
+    p = {"ln1": _zeros((L, D), device), "ln2": _zeros((L, D), device),
+         "attn": _init_attn(cfg, L, g, device)}
+    if cfg.moe is not None:
+        p["moe"] = _init_moe(cfg, L, g, device)
+    else:
+        p["mlp"] = _init_mlp(cfg, L, g, device)
+    return p
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device) -> Dict[str, Any]:
-    """The fp32 parameter tree of a dense, moe or ssm model (reference
-    ``Model._init_tree`` for those families). ``generator`` must live on
-    ``device``."""
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"init_params: family {cfg.family!r} is "
-                                  f"not ported yet")
+    """The fp32 parameter tree of ``cfg`` (reference
+    ``Model._init_tree``). ``generator`` must live on ``device``. An
+    unknown family raises ``ValueError``."""
     L, D, V = cfg.n_layers, cfg.d_model, padded_vocab(cfg.vocab)
-    p: Dict[str, Any] = {"embed": _normal((V, D), generator, device, 1.0),
+    g = generator
+    p: Dict[str, Any] = {"embed": _normal((V, D), g, device, 1.0),
                          "final_norm": _zeros((D,), device)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = _normal((D, V), generator, device)
+        p["lm_head"] = _normal((D, V), g, device)
     if cfg.pos_embedding == "learned":
-        p["pos_embed"] = _normal((1 << 15, D), generator, device, 0.02)
-    if cfg.family == "ssm":
+        p["pos_embed"] = _normal((1 << 15, D), g, device, 0.02)
+    if cfg.family in ("dense", "moe", "vlm"):
+        p["layers"] = _init_decoder(cfg, L, g, device)
+    elif cfg.family in ("ssm", "hybrid"):
         p["layers"] = {"ln1": _zeros((L, D), device),
-                       "mamba": _init_mamba(cfg, L, generator, device)}
-        return p
-    p["layers"] = {"ln1": _zeros((L, D), device),
-                   "ln2": _zeros((L, D), device),
-                   "attn": _init_attn(cfg, L, generator, device)}
-    if cfg.moe is not None:
-        p["layers"]["moe"] = _init_moe(cfg, L, generator, device)
+                       "mamba": _init_mamba(cfg, L, g, device)}
+        if cfg.family == "hybrid":  # ONE shared attention+MLP block
+            p["shared"] = {"ln1": _zeros((1, D), device),
+                           "ln2": _zeros((1, D), device),
+                           "attn": _init_attn(cfg, 1, g, device),
+                           "mlp": _init_mlp(cfg, 1, g, device)}
+    elif cfg.family == "audio":
+        Le = cfg.n_enc_layers
+        p["enc_layers"] = {"ln1": _zeros((Le, D), device),
+                           "ln2": _zeros((Le, D), device),
+                           "attn": _init_attn(cfg, Le, g, device),
+                           "mlp": _init_mlp(cfg, Le, g, device)}
+        p["enc_pos"] = _normal((cfg.enc_seq, D), g, device, 0.02)
+        p["layers"] = {"ln1": _zeros((L, D), device),
+                       "ln_x": _zeros((L, D), device),
+                       "ln2": _zeros((L, D), device),
+                       "attn": _init_attn(cfg, L, g, device),
+                       "cross": _init_attn(cfg, L, g, device),
+                       "mlp": _init_mlp(cfg, L, g, device)}
     else:
-        p["layers"]["mlp"] = _init_mlp(cfg, L, generator, device)
+        raise ValueError(cfg.family)
     return p
 
 

@@ -7,11 +7,14 @@ module, as in the reference:
 * **Static batching** (``ServePlanner`` / ``serve_batch``): all pending
   mail becomes ONE closed-loop generation intent; requests arriving
   mid-generation wait for the whole batch to finish. ``h_serve_batch``
-  runs ``Model.prefill`` and ``Model.decode_step`` (the dense and ssm
-  families in the port), with the reference's quirks kept: prompts are
-  left-padded with token 0 (which neither dense attention nor an SSM
-  masks), optional ``pad_batch`` dummy rows are dropped from the result,
-  and the argmax runs over the padded vocab.
+  runs ``Model.prefill`` and ``Model.decode_step`` for every family, with
+  the reference's quirks kept: prompts are left-padded with token 0
+  (which neither dense attention nor an SSM masks), optional
+  ``pad_batch`` dummy rows are dropped from the result, the argmax runs
+  over the padded vocab, and the modality frontends are stubs (zero
+  ``frame_embed`` of ``enc_seq`` rows for audio, zero ``patch_embed`` of
+  ``n_frontend_tokens`` rows for vlm, whose decode positions then start
+  past the prefix).
 
 * **Continuous batching** (``ContinuousServePlanner`` / ``serve_step``):
   the planner is a step-level scheduler over the paged decode engine
@@ -77,27 +80,42 @@ def pad_prompts(prompts, pad_batch: Optional[int] = None) -> np.ndarray:
     return toks
 
 
+def stub_batch(cfg: ArchConfig, tokens: torch.Tensor):
+    """The static batch of ``tokens`` (rows, plen) with the stubbed
+    modality frontends (zero ``frame_embed`` (rows, enc_seq, D) for audio,
+    zero ``patch_embed`` (rows, n_frontend_tokens, D) for vlm, fp32 on the
+    tokens' device), and the position of its first decoded token: the
+    prefilled length (vlm prefixes its patch tokens ahead of the text)."""
+    rows, plen = tokens.shape
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":
+        batch["frame_embed"] = torch.zeros((rows, cfg.enc_seq, cfg.d_model),
+                                           dtype=torch.float32,
+                                           device=tokens.device)
+    if cfg.family == "vlm":
+        batch["patch_embed"] = torch.zeros(
+            (rows, cfg.n_frontend_tokens, cfg.d_model), dtype=torch.float32,
+            device=tokens.device)
+        return batch, plen + cfg.n_frontend_tokens
+    return batch, plen
+
+
 def h_serve_batch(args: Dict[str, Any], env: ServeEnv) -> Dict[str, Any]:
     env.ensure_initialized()
     new_tokens = int(args.get("max_new_tokens", env.max_new_tokens))
     bsz = len(args["prompts"])
     toks = pad_prompts(args["prompts"], args.get("pad_batch"))
     plen = toks.shape[1]
-    cfg = env.model.cfg
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"h_serve_batch: the {cfg.family} "
-                                  f"frontend is not ported yet")
-    dev = env.params["embed"].device
-    logits, cache = env.model.prefill(
-        env.params, {"tokens": torch.from_numpy(toks).to(dev)},
-        extra_cache=new_tokens)
+    batch, pos0 = stub_batch(env.model.cfg, torch.from_numpy(toks).to(
+        env.params["embed"].device))
+    logits, cache = env.model.prefill(env.params, batch,
+                                      extra_cache=new_tokens)
     # argmax over the padded vocab (pad logits are -1e30)
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
     out = [tok]
-    # position of the first decoded token = the prefilled length
     for t in range(new_tokens - 1):
         logits, cache = env.model.decode_step(env.params, cache, tok,
-                                              plen + t)
+                                              pos0 + t)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out.append(tok)
     gen = torch.cat(out, dim=1).cpu().numpy()[:bsz]  # drop pad rows

@@ -19,6 +19,9 @@ Tolerances (stated where they are used as well):
   shows that it still catches a config option left out on the port's
   side;
 * tokens (greedy argmaxes) equal exactly.
+
+The audio and vlm families take their stub frontend's input from
+``frontend`` (unit normal from a seed) in the prefill and the loss.
 """
 import dataclasses
 
@@ -63,46 +66,89 @@ def close(got, want, **tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **tol)
 
 
-def close_cache(tc, jc):
-    assert tc.keys() == jc.keys() == {"k", "v", "pos"}
-    close(tc["k"], jc["k"], **LOGIT_TOL)
-    close(tc["v"], jc["v"], **LOGIT_TOL)
-    np.testing.assert_array_equal(np.asarray(tc["pos"]),
-                                  np.asarray(jc["pos"]))
-
-
 def tokens(seed, shape, vocab):
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
-def prefill_and_decode(st, use_kernel, S, extra, steps=4):
-    """Prefill of a (2, S) batch and ``steps`` decode steps on both sides:
-    the logits and every layer's K/V cache after each. Returns the port's
-    cache's slot count and the positions the steps wrote, for the caller's
-    checks."""
+def close_tree(tc, jc, tol=LOGIT_TOL):
+    """Every leaf of the port's cache ``tc`` against the reference's
+    ``jc``: the same nested keys and shapes, integer leaves (positions)
+    equal, float leaves at ``tol``."""
+    if isinstance(jc, dict):
+        assert isinstance(tc, dict) and tc.keys() == jc.keys()
+        for k in jc:
+            close_tree(tc[k], jc[k], tol)
+        return
+    got, want = np.asarray(tc), np.asarray(jc)
+    assert got.shape == want.shape
+    if np.issubdtype(want.dtype, np.integer):
+        np.testing.assert_array_equal(got, want)
+    else:
+        close(got, want, **tol)
+
+
+def frontend(cfg, b=2, seed=3):
+    """The stub frontend's input of ``cfg`` as numpy, unit normal from a
+    seed: ``frame_embed`` (b, enc_seq, D) for audio, ``patch_embed`` (b,
+    n_frontend_tokens, D) for vlm, nothing for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        shape, key = (b, cfg.enc_seq, cfg.d_model), "frame_embed"
+    elif cfg.family == "vlm":
+        shape, key = (b, cfg.n_frontend_tokens, cfg.d_model), "patch_embed"
+    else:
+        return {}
+    return {key: rng.standard_normal(shape).astype(np.float32)}
+
+
+def as_batches(arrays):
+    """A batch of numpy arrays as the reference's (int32 tokens) and the
+    port's (int64 tokens; float arrays kept fp32)."""
+    jb = {k: jnp.asarray(v, jnp.int32 if v.dtype.kind == "i" else None)
+          for k, v in arrays.items()}
+    tb = {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind == "i"
+                              else v) for k, v in arrays.items()}
+    return jb, tb
+
+
+def prefill_and_decode_tree(st, use_kernel, S, extra, steps=4,
+                            tol=LOGIT_TOL):
+    """Prefill of a (2, S) prompt behind the family's seeded frontend
+    input on both sides, then ``steps`` decode steps from the prefilled
+    length (the prompt plus a vlm's prefix): the logits and every leaf of
+    the cache held after each (``close_tree``), all at ``tol``. Returns
+    the port's last cache."""
     jcfg, tcfg, jparams, tparams = st
-    jm, tm = JaxModel(jcfg, dtype=jnp.float32), Model(tcfg,
-                                                      use_kernel=use_kernel)
-    toks = tokens(6, (2, S), tcfg.vocab)
-    jl, jc = jm.prefill(jparams, {"tokens": jnp.asarray(toks, jnp.int32)},
-                        extra_cache=extra)
+    jm = JaxModel(jcfg, dtype=jnp.float32)
+    tm = Model(tcfg, use_kernel=use_kernel)
+    jb, tb = as_batches(dict(tokens=tokens(6, (2, S), tcfg.vocab),
+                             **frontend(tcfg)))
+    jl, jc = jm.prefill(jparams, jb, extra_cache=extra)
     with torch.no_grad():
-        tl, tc = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
-                            extra_cache=extra)
+        tl, tc = tm.prefill(tparams, tb, extra_cache=extra)
     assert tuple(tl.shape) == jl.shape == (2, 1, tm.vocab_pad)
-    close(tl, jl, **LOGIT_TOL)
-    assert tc.keys() == jc.keys() == {"attn"}
-    close_cache(tc["attn"], jc["attn"])
+    close(tl, jl, **tol)
+    close_tree(tc, jc, tol)
+    cur0 = S + (tcfg.n_frontend_tokens if tcfg.family == "vlm" else 0)
     tok = np.array([[3], [77]])
     for step in range(steps):
-        cur = S + step
         jl, jc = jm.decode_step(jparams, jc, jnp.asarray(tok, jnp.int32),
-                                jnp.int32(cur))
+                                jnp.int32(cur0 + step))
         with torch.no_grad():
-            tl, tc = tm.decode_step(tparams, tc, torch.from_numpy(tok), cur)
-        close(tl, jl, **LOGIT_TOL)
-        close_cache(tc["attn"], jc["attn"])
+            tl, tc = tm.decode_step(tparams, tc, torch.from_numpy(tok),
+                                    cur0 + step)
+        close(tl, jl, **tol)
+        close_tree(tc, jc, tol)
         tok = np.array(jnp.argmax(jl[:, -1], -1))[:, None]
+    return tc
+
+
+def prefill_and_decode(st, use_kernel, S, extra, steps=4):
+    """``prefill_and_decode_tree`` of a model whose cache is K/V alone:
+    the port's cache's slot count and the positions its slots hold after
+    the last step, for the caller's checks."""
+    tc = prefill_and_decode_tree(st, use_kernel, S, extra, steps)
+    assert tc.keys() == {"attn"}
     return tc["attn"]["k"].shape[2], tc["attn"]["pos"][0].tolist()
 
 
@@ -115,19 +161,22 @@ def batch(vocab, b=2, s=24, seed=0):
     return {"tokens": tok[:, :-1], "labels": labels}
 
 
-def loss_and_grads(st, remat="none", s=24, **broken):
+def loss_and_grads(st, remat="none", s=24, grad_rtol=GRAD_RTOL,
+                   grad_atol=GRAD_ATOL, **broken):
     """The loss, its metrics and every parameter's gradient on both sides
-    (the reference at remat none). Returns the port's metrics. ``broken``
-    replaces config fields on the port's side only (a control)."""
+    (the reference at remat none), the batch with the family's seeded
+    frontend input (``frontend``); the gradients at ``grad_rtol`` and
+    ``grad_atol`` x each leaf's largest magnitude. Returns the port's
+    metrics. ``broken`` replaces config fields on the port's side only (a
+    control)."""
     jcfg, tcfg, jparams, tparams = st
     jm = JaxModel(jcfg, dtype=jnp.float32)
     tm = Model(dataclasses.replace(tcfg, **broken))
-    b = batch(tcfg.vocab, s=s)
+    b = dict(batch(tcfg.vocab, s=s), **frontend(tcfg))
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p, bb: jm.loss_fn(p, bb), has_aux=True))(jparams, b)
     leaves = tree_map(lambda t: t.clone().requires_grad_(), tparams)
-    loss, met = tm.loss_fn(leaves, {k: torch.from_numpy(v).long()
-                                    for k, v in b.items()}, remat=remat)
+    loss, met = tm.loss_fn(leaves, as_batches(b)[1], remat=remat)
     loss.backward()
     close(float(loss.detach()), float(jloss), **LOSS_TOL)
     assert met.keys() == jmet.keys()
@@ -139,8 +188,8 @@ def loss_and_grads(st, remat="none", s=24, **broken):
     for g, w in zip(tleaves, jleaves):
         w = np.asarray(w)
         np.testing.assert_allclose(
-            g.numpy(), w, rtol=GRAD_RTOL,
-            atol=GRAD_ATOL * max(float(np.abs(w).max()), 1e-30),
+            g.numpy(), w, rtol=grad_rtol,
+            atol=grad_atol * max(float(np.abs(w).max()), 1e-30),
             equal_nan=False)
     return met
 

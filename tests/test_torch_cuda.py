@@ -1,8 +1,8 @@
 """Tests of the port that need the card: each CUDA kernel (paged
 attention, the SSD intra-chunk terms, flash attention) against its plain
 version, the tokens of the paths they carry (the paged engine, static
-mamba2, qwen3, gemma2 and mixtral serving) with the kernel against the
-plain path, one full-width mixtral moe layer on the card against the
+mamba2, qwen3, gemma2, mixtral, zamba2, whisper and internvl2 serving)
+with the kernel against the plain path, one full-width mixtral moe layer on the card against the
 CPU, and the train step on the card against the same step on the CPU,
 whose loss and backward launch no kernel. Marked ``cuda``; they skip where there is
 no card. Run them on a machine with one:
@@ -221,9 +221,11 @@ def _ssd_case(seed, b, nc, q, h, p, g, n, device, a=None, dt_shift=0.0):
     (dict(b=2, nc=2, q=256, h=8, p=128, g=1, n=128), dict(a=-1.0)),
     (dict(b=1, nc=3, q=160, h=6, p=96, g=2, n=64), {}),
     (dict(b=1, nc=2, q=70, h=2, p=130, g=1, n=10), {}),  # 4-byte copies
+    (dict(b=2, nc=3, q=256, h=64, p=64, g=1, n=64),
+     dict(a=-1.0)),                           # zamba2's mamba layers
 ], ids=["oracle-case", "b2", "q64", "g2-of-8", "q80", "overflow", "q300",
         "reuse_h48_g1", "g2_of_8_q128", "q1024", "p20_n36", "p6_n10",
-        "p128", "p96", "p130"])
+        "p128", "p96", "p130", "zamba2_h64_p64_n64"])
 def test_ssd_kernel_matches_plain(cuda, shape, kw):
     case = _ssd_case(0, device=cuda, **shape, **kw)
     before = ssd_intra.launches
@@ -307,11 +309,17 @@ def _mha_case(seed, b, sq, sk, h, kv, dh, device):
     ((2, 200, 200, 4, 4, 128), {}),                  # one head a kv head
     ((1, 150, 150, 6, 2, 50), dict(window=40)),      # 4-byte copies, rep 3
     ((1, 4352, 4352, 16, 8, 256), dict(window=4096, softcap=50.0)),
+    ((1, 1500, 1500, 12, 12, 64), dict(causal=False)),   # whisper encoder
+    ((1, 40, 1500, 12, 12, 64), dict(causal=False)),     # whisper cross
+    ((1, 4500, 4500, 32, 32, 64), dict(window=4096)),    # zamba2 shared
+    ((2, 1280, 1280, 48, 8, 128), {}),                   # internvl2, rep 6
 ], ids=["mha", "gqa", "mqa_sk_gt_sq", "unaligned", "noncausal", "window",
         "softcap", "window_softcap", "noncausal_unaligned", "sq_gt_sk",
         "sq_gt_sk_window", "inf_window", "qwen3_full_width",
         "head_dim_256_window_softcap", "gemma2_heads_head_dim_256", "rep_1",
-        "head_dim_not_multiple_of_4", "gemma2_layer_past_its_window"])
+        "head_dim_not_multiple_of_4", "gemma2_layer_past_its_window",
+        "whisper_encoder_1500", "whisper_cross_40_of_1500",
+        "zamba2_shared_window_4096", "internvl2_heads_48_of_8"])
 def test_flash_kernel_matches_plain(cuda, shape, kw):
     q, k, v = _mha_case(0, *shape, device=cuda)
     before = flash_mha.launches
@@ -385,6 +393,35 @@ def test_windowed_static_serving_tokens_kernel_vs_plain(cuda, arch):
         flash_mha.launches = 0
         outs.append(server.h_serve_batch(dict(args), env))
         assert flash_mha.launches == (cfg.n_layers if use_kernel else 0)
+    assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "whisper_small",
+                                  "internvl2_26b"])
+def test_new_family_static_serving_tokens_kernel_vs_plain(cuda, arch):
+    """The hybrid, audio and vlm smoke configs served with the kernels and
+    on the plain path give the same tokens; each prefill launches the SSD
+    kernel once a mamba layer and flash once a shared-block application
+    (hybrid), once an encoder layer and twice a decoder layer (audio), or
+    once a layer (vlm)."""
+    cfg = smoke(get_config(arch))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(6)
+    args = {"prompts": [rng.integers(1, cfg.vocab, size=n).tolist()
+                        for n in (5, 70, 17)], "max_new_tokens": 6}
+    want = {"zamba2_1p2b": (cfg.n_layers // max(cfg.hybrid_attn_every, 1),
+                            cfg.n_layers),
+            "whisper_small": (cfg.n_enc_layers + 2 * cfg.n_layers, 0),
+            "internvl2_26b": (cfg.n_layers, 0)}[arch]
+    outs = []
+    for use_kernel in (True, False):
+        env = server.ServeEnv(model=Model(cfg, use_kernel=use_kernel),
+                              params=params, device=cuda)
+        flash_mha.launches = ssd_intra.launches = 0
+        outs.append(server.h_serve_batch(dict(args), env))
+        assert (flash_mha.launches, ssd_intra.launches) == (
+            want if use_kernel else (0, 0))
     assert outs[0] == outs[1] and len(outs[0]["generated"]) == 3
 
 

@@ -433,12 +433,13 @@ def test_prefill_decode_consistency(mamba):
 
 
 def test_other_families_raise_naming_the_family():
-    # the dense and moe families' static paths are ported too
-    # (test_torch_dense_static, test_torch_moe)
+    # every family of the reference is ported (test_torch_dense_static,
+    # test_torch_moe, test_torch_hybrid, test_torch_encdec_vlm); an
+    # unknown one raises ValueError naming it, as the reference's does
     model = Model(dataclasses.replace(smoke(get_config("qwen3_4b")),
-                                      family="hybrid"))
+                                      family="bogus"))
     for call in (lambda: model.init_cache(1, 4, device="cpu"),
                  lambda: model.prefill({}, {"tokens": None}),
                  lambda: model.decode_step({}, {}, None, 0)):
-        with pytest.raises(NotImplementedError, match="hybrid"):
+        with pytest.raises(ValueError, match="bogus"):
             call()

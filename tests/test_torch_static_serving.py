@@ -188,10 +188,11 @@ def test_static_entry_points_need_cuda_unless_told_cpu(monkeypatch):
 
 
 def test_static_serving_of_an_unported_family_raises():
-    # the dense and moe families are served too
-    # (tests/test_torch_dense_static.py, tests/test_torch_moe.py)
+    # every family of the reference is served (tests/test_torch_hybrid.py,
+    # tests/test_torch_encdec_vlm.py and others); an unknown one raises
+    # ValueError naming it, from init_params as from the reference's
     cfg = dataclasses.replace(smoke(get_config("qwen3_4b")),
-                              family="hybrid")
+                              family="bogus")
     env = server.ServeEnv(model=Model(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    with pytest.raises(ValueError, match="bogus"):
         server.h_serve_batch({"prompts": [[1, 2]], "max_new_tokens": 2}, env)
