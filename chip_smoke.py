@@ -127,13 +127,33 @@ code is not 0 and no result line is printed:
    Then prefill and decode times, peak memory and profiles, flash at
    zamba2's windowed shared block and at whisper's cross-attention, and
    ``ssd_intra`` at zamba2's layer 0, each beside its bound.
-10. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those
+10. slice 7 — the entry points and the int8 KV cache at full width:
+   ``repro_torch.launch.serve.main(["--full-config", "--arch", ...])``
+   for ``qwen3_4b`` (one ``serve_batch`` of the launcher's 8 requests of
+   3 tokens: 36 flash launches) and ``mamba2_780m`` (48 ``ssd_intra``
+   launches), launch counts zeroed just before and read just after, each
+   beside the same launcher on the plain path and the same parameters
+   (equal tokens), and a held prefill of the served batch (every launch
+   against its plain version beside its broken control; the logits and
+   K/V or SSM states); ``Model(qwen3_4b, kv_quant=True)`` on slice 3's
+   two batches, its int8 K/V against the plain path's, its bytes beside
+   the fp32 cache's, 16 decode steps whose softmax must stay within 0.05
+   of the fp32 cache's (a control with the ints rolled by one kv head
+   must not); ``repro_torch.launch.train.main`` at full-width
+   ``qwen3_4b`` (AdamW, remat dots) for 16 steps on a SQLite log that a
+   second reader opens, its step time, peak memory and the step-8
+   checkpoint's save seconds and bytes; the port's two
+   examples at smoke scale on the card with their own asserts.
+11. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those
    of its governed kernel runs, named on the line before), the card's
    name and power limit, and last the ``{"ok": true, "device": ...}``
    line.
 """
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -145,6 +165,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -198,6 +219,18 @@ INTERNVL2_PROMPTS = (1024, 300)
 INTERNVL2_LAYERS = 24
 # whisper_small's attention scores in slice 6 (see _whisper_weights)
 WHISPER_SCORE_STD = 1.0
+# slice 7: the launchers' argument lists, and the int8 KV cache's decode
+# (slice 3's batches, extra_cache and new tokens); its softmax against the
+# exact fp32 cache's (tests/test_models.py:158-172)
+SERVE_ARGV = ["--full-config", "--arch"]
+# 16 steps: the launcher checkpoints every max(16 // 3, 8) = 8 steps, so
+# its run saves the step-8 checkpoint (params and AdamW state) on the way
+TRAIN_ARGV = ["--full-config", "--arch", "qwen3_4b", "--bus", "sqlite",
+              "--steps", "16"]
+TRAIN_CKPTS = [8]
+EXAMPLES = (("quickstart_torch", []),
+            ("fault_tolerant_train_torch", ["--steps", "48"]))
+INT8_SOFTMAX_LIMIT = 0.05
 # slice 1's governed kernel run is made once on each of these logs: the
 # in-memory bus, SQLite with group commit, and the segmented KV store
 SERVE_BUSES = ("memory", "sqlite", "kv")
@@ -1425,25 +1458,33 @@ def main() -> None:
     # 9. slice 6: zamba2_1p2b, whisper_small and internvl2_26b at full
     # width
     last = slice_last_families(smi)
+    torch.cuda.empty_cache()
 
-    # 10. result lines; each kernel's launches are those of its governed
+    # 10. slice 7: the launchers, the examples and the int8 KV cache
+    entry = slice_entry_points(smi)
+
+    # 11. result lines; each kernel's launches are those of its governed
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + new["paged_attention"],
-        "ssd_intra": ssd["launches"] + last["ssd_intra"],
+        "ssd_intra": ssd["launches"] + last["ssd_intra"]
+        + entry["ssd_intra"],
         "flash_attention": flash["launches"] + new["flash_attention"]
-        + last["flash_attention"]}
+        + last["flash_attention"] + entry["flash_attention"]}
     print(f"[launches] paged_attention {launches['paged_attention']} = "
           f"{paged['launches']} (slice 1, qwen3_4b continuous) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
           f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
           f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
-          f"zamba2_1p2b static); "
+          f"zamba2_1p2b static) + {entry['ssd_intra']} (slice 7, "
+          f"launch.serve mamba2_780m); "
           f"flash_attention {launches['flash_attention']} = "
           f"{flash['launches']} (slice 3, qwen3_4b static) + "
           + " + ".join(f"{n} (slice {sl}, {a} static)"
                        for sl, runs in ((5, new), (6, last))
-                       for a, n in runs["flash_by_run"].items()))
+                       for a, n in runs["flash_by_run"].items())
+          + f" + {entry['flash_attention']} (slice 7, launch.serve "
+          f"qwen3_4b)")
     kernels = [{"name": "paged_attention", "route": "cuda",
                 "source": "src/repro_torch/csrc/paged_attention.cu",
                 "replaces": "src/repro/kernels/paged_attention.py:45",
@@ -2255,13 +2296,20 @@ def _ssd_checker(log):
     """A stand-in for the SSD layer's ``ssd_intra`` that launches the
     kernel and logs ``_launch_check`` of its y and states against
     ``ssd_intra_plain`` (the worse of the two), the broken control being
-    the plain version with each chunk's last row of x zeroed."""
+    the plain version with each chunk's last row of x that holds a token
+    zeroed (the last row, but in a chunk that ``ssd_chunked`` padded,
+    whose pad rows have dt 0)."""
+    import torch
     from repro_torch.kernels.ssd_scan import ssd_intra, ssd_intra_plain
 
-    def checked(x, *rest):
-        out = ssd_intra(x, *rest)
+    def checked(x, dt, *rest):
+        out = ssd_intra(x, dt, *rest)
+        b, nc = x.shape[:2]
+        last = (dt > 0).any(-1).int().cumsum(-1).argmax(-1)  # (b, nc)
         x0 = x.clone()
-        x0[:, :, -1] = 0
+        x0[torch.arange(b, device=x.device)[:, None],
+           torch.arange(nc, device=x.device)[None, :], last] = 0
+        rest = (dt,) + rest
         checks = [_launch_check(o, r, c) for o, r, c in zip(
             out[:2], ssd_intra_plain(x, *rest)[:2],
             ssd_intra_plain(x0, *rest)[:2])]
@@ -2320,7 +2368,7 @@ def hold_prefill(cfg, params, batch, per_prefill=None, routing=False):
                        " rows (a row of each launch's batch)")
     if slog:
         _hold_launches("ssd_intra", slog, "plain with each chunk's last "
-                       "x row zeroed")
+                       "token's x row zeroed")
     return kernel, plain, (krout, prout)
 
 
@@ -2883,6 +2931,371 @@ def slice_last_families(smi):
             "ssd_intra": runs["zamba2_1p2b"]["ssd_intra"],
             "flash_by_run": {a: r["flash_attention"]
                              for a, r in runs.items()}}
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the entry points and the int8 KV cache at full width
+# ---------------------------------------------------------------------------
+
+def _served(agent):
+    """Each executed ``serve_batch`` of the agent's log: (prompts,
+    generated tokens)."""
+    from repro_torch.core import trace_intents
+    return [(t.args["prompts"], t.result["value"]["generated"])
+            for t in trace_intents(agent.bus.read(0))
+            if t.kind == "serve_batch" and t.result and t.result["ok"]]
+
+
+def _plain_agent(build, params):
+    """``build`` (``build_serving_agent``) for the plain path
+    (``use_kernel=False``), its env holding ``params``."""
+    def plain(cfg, **kw):
+        agent = build(cfg, use_kernel=False, **kw)
+        agent.executor.env.params = params
+        return agent
+    return plain
+
+
+def launch_serve(arch, per_prefill, smi):
+    """Phase 7a: ``launch.serve.main`` at full width on the card (the
+    launcher's 8 requests of 3 tokens in one ``serve_batch`` of 16 new
+    tokens), every kernel's count zeroed just before and read just after;
+    the same launcher with its agent's model on the plain path and the
+    kernel run's parameters must serve the same tokens; then a held
+    prefill of the served batch (``hold_prefill``: every kernel launch
+    against its plain version, beside its broken control) and its
+    outputs (``hold_outputs``). Returns the kernel run's launches and its
+    config and parameters."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving.server import pad_prompts
+    argv = SERVE_ARGV + [arch]
+    wrappers = _wrappers()
+    runs = {}
+    for label in ("kernel", "plain"):
+        print(f"  launch.serve.main({argv}), {label} run:")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if label == "kernel":
+            agent = serve.main(argv)
+        else:
+            with mock.patch.object(serve, "build_serving_agent", _plain_agent(
+                    serve.build_serving_agent,
+                    runs["kernel"][0].executor.env.params)):
+                agent = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        runs[label] = (agent, launches)
+        print(f"    launches {launches}; wall {wall:.3f} s (the kernel run "
+              f"draws the parameters); peak memory "
+              f"{torch.cuda.max_memory_allocated()} B | on {smi}")
+    agent, launches = runs["kernel"]
+    cfg, params = agent.executor.env.model.cfg, agent.executor.env.params
+    want = dict(_no_launches(), **per_prefill)
+    got, ref = _served(agent), _served(runs["plain"][0])
+    print(f"  {cfg.arch_id}: served batches {len(got)} of "
+          f"{[len(pr) for pr, _ in got]} prompts; kernel tokens equal to the "
+          f"plain run's: {got == ref}; e.g. {got[0][1][:2]}")
+    if launches != want or runs["plain"][1] != _no_launches():
+        raise AssertionError(f"the launcher's kernel run launched "
+                             f"{launches}, not {want}, or its plain run "
+                             f"launched a kernel")
+    if len(got) != 1 or got != ref:
+        raise AssertionError("the launcher's kernel and plain runs served "
+                             "other tokens, or not in one batch")
+    for _, gen in got:
+        if not all(len(g) == 16 and all(0 <= t < cfg.vocab for t in g)
+                   for g in gen):
+            raise AssertionError(f"bad tokens {gen}")
+    batch = _held_batch(cfg, pad_prompts(got[0][0]))
+    kernel, plain, _ = hold_prefill(cfg, params, batch, per_prefill)
+    hold_outputs(cfg, kernel, plain)
+    del runs, kernel, plain
+    return launches, cfg, params
+
+
+def _int8_gap(got, want):
+    """The int8 K or V of the kernel path's prefill against the plain
+    path's: the largest difference of the ints and their share that
+    differ."""
+    d = (got.int() - want.int()).abs()
+    return d.max().item(), (d > 0).float().mean().item()
+
+
+def _decode_probs(model, params, cache, plen, fed):
+    """STATIC_NEW_TOKENS decode steps from ``cache`` at positions ``plen``
+    on, step t feeding ``fed[t]`` (B, 1); where ``fed`` runs out, the
+    step's greedy token is appended to it. Returns each step's softmax of
+    the last position, the ms a step and the peak memory."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    probs = []
+    for t in range(STATIC_NEW_TOKENS):
+        logits, cache = model.decode_step(params, cache, fed[t], plen + t)
+        probs.append(torch.softmax(logits[:, -1], dim=-1))
+        if len(fed) == t + 1:
+            fed.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+    torch.cuda.synchronize()
+    return (probs, (time.perf_counter() - t0) * 1e3 / STATIC_NEW_TOKENS,
+            torch.cuda.max_memory_allocated())
+
+
+def int8_cache(cfg, params, smi):
+    """Phase 7d: ``Model(cfg, kv_quant=True)`` at full width with the flash
+    kernel on slice 3's two static batches (16 extra slots): the int8 K/V
+    held to the plain path's prefill within 1 (the share that differ
+    printed) and the scales to slice 3's rule, the cache's bytes beside
+    the exact fp32 cache's; then 16 decode steps on the fp32 run's greedy
+    tokens, the int8 run's softmax within INT8_SOFTMAX_LIMIT of the fp32
+    run's at every step, beside a broken control (the ints rolled by one
+    kv head) that must break it; decode step times and peak memory of
+    both."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.server import pad_prompts
+    reqs = static_requests(cfg)
+    n_new = STATIC_NEW_TOKENS
+    exact = Model(cfg)
+    quant, quant_plain = (Model(cfg, kv_quant=True),
+                          Model(cfg, kv_quant=True, use_kernel=False))
+    flash = _wrappers()["flash_attention"]
+    for i in range(0, len(reqs), STATIC_MAX_BATCH):
+        toks = pad_prompts([r["prompt_tokens"]
+                            for r in reqs[i:i + STATIC_MAX_BATCH]])
+        batch = {"tokens": torch.from_numpy(toks).cuda()}
+        plen = toks.shape[1]
+        logits, cache = exact.prefill(params, batch, extra_cache=n_new)
+        f_bytes = {n: t.nbytes for n, t in cache["attn"].items()}
+        fed = [torch.argmax(logits[:, -1], dim=-1)[:, None]]
+        want, f_ms, f_peak = _decode_probs(exact, params, cache, plen, fed)
+        del cache
+        flash.launches = 0
+        cq = quant.prefill(params, batch, extra_cache=n_new)[1]
+        n_flash = flash.launches
+        cp = quant_plain.prefill(params, batch, extra_cache=n_new)[1]
+        gaps = {n: _int8_gap(cq["attn"][n], cp["attn"][n]) for n in "kv"}
+        scale = {n: _launch_check(cq["attn"][f"{n}_scale"],
+                                  cp["attn"][f"{n}_scale"])[1] for n in "kv"}
+        del cp
+        q_bytes = {n: t.nbytes for n, t in cq["attn"].items()}
+        print(f"  prefill {tuple(toks.shape)} + {n_new} slots, int8 cache "
+              f"(flash launches {n_flash}), K/V "
+              f"{tuple(cq['attn']['k'].shape)} against the plain path's: K "
+              f"ints differ by at most {gaps['k'][0]}, in a share "
+              f"{gaps['k'][1]:.3e}; V at most {gaps['v'][0]}, in "
+              f"{gaps['v'][1]:.3e}; the scales' largest error / limit "
+              f"(slice 3's rule) K {scale['k']:.3g}, V {scale['v']:.3g}")
+        print(f"    cache bytes (nbytes): int8 {sum(q_bytes.values())} "
+              f"{q_bytes} vs fp32 {sum(f_bytes.values())} {f_bytes} = "
+              f"{sum(q_bytes.values()) / sum(f_bytes.values()):.4f}")
+        if n_flash != cfg.n_layers or max(g[0] for g in gaps.values()) > 1 \
+                or not max(scale.values()) <= 1:
+            raise AssertionError("int8 prefill: not one flash launch a "
+                                 "layer, or an int off by more than 1 or a "
+                                 "scale over the limit against plain")
+        got, q_ms, q_peak = _decode_probs(quant, params, cq, plen, fed)
+        broken = {"attn": {n: torch.roll(t, 1, dims=3) if n in ("k", "v")
+                           else t for n, t in cq["attn"].items()}}
+        del cq
+        bad = _decode_probs(quant, params, broken, plen, fed)[0]
+        del broken
+        errs = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        berrs = [(a - b).abs().max().item() for a, b in zip(bad, want)]
+        del got, bad, want
+        print(f"    {n_new} decode steps on the fp32 run's greedy tokens: "
+              f"max |softmax int8 - softmax fp32| a step "
+              f"{[float(f'{e:.3g}') for e in errs]} (limit "
+              f"{INT8_SOFTMAX_LIMIT}); broken control (ints rolled by one "
+              f"kv head): largest {max(berrs):.3g}; decode step fp32 "
+              f"{f_ms:.2f} ms, int8 {q_ms:.2f} ms; peak memory over the "
+              f"decode fp32 {f_peak} B, int8 {q_peak} B | on {smi}")
+        if not max(errs) < INT8_SOFTMAX_LIMIT:
+            raise AssertionError("the int8 cache's softmax left the limit")
+        if not max(berrs) > INT8_SOFTMAX_LIMIT:
+            raise AssertionError("the broken int8 control met the limit")
+
+
+def launch_train(n_params, smi):
+    """Phase 7b: ``launch.train.main`` at full-width qwen3_4b (AdamW, remat
+    dots, 8 x 64 tokens a step, the data vocabulary cut to 4096) for 16
+    steps on a SQLite log in a temporary directory; its step time and
+    peak memory beside the predicted peak, and the step-8 checkpoint's
+    save seconds and bytes beside the free disk; the run must reach
+    16/16 with finite losses, list the step-8 checkpoint and print the
+    data-vocab line, and a second ``SqliteBus`` on the file must see the
+    agent's tail and committed intents. No kernel may launch."""
+    import torch
+    from repro_torch.core import PayloadType, SqliteBus, trace_intents
+    from repro_torch.launch import train
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    print(f"  predicted peak: 16 B x {n_params} params (fp32 params, grads, "
+          f"AdamW m and v) = {16 * n_params} B, plus a few GB of remat "
+          f"dots' saved matmul outputs and the optimizer's temporaries; "
+          f"checkpoint 12 B x {n_params} = {12 * n_params} B (params, m, v)")
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    log = {}
+    out = io.StringIO()
+    build = train.build_env
+
+    def timed_env(*args, **kw):
+        env = build(*args, **kw)
+        env.train_step = _timed(env.train_step, log, "step")
+        env.ckpts.save = _timed(env.ckpts.save, log, "save")
+        return env
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-launch-") as root, \
+            mock.patch.object(train, "build_env", timed_env):
+        argv = TRAIN_ARGV + ["--workdir", root]
+        print(f"  launch.train.main({argv}); free disk under {root} "
+              f"{shutil.disk_usage(root).free} B, host memory available "
+              f"{_mem_available()} B:")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                agent = train.main(argv)
+        finally:
+            print(out.getvalue(), end="")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        env, bus = agent.executor.env, agent.bus
+        ckpts = env.ckpts.list_steps()
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(env.ckpts._dir(c), "state.npz"))
+            for c in ckpts)
+        trace = trace_intents(bus.read(0))
+        losses = [x for t in trace if t.kind == "train_chunk" and t.result
+                  and t.result["ok"] for x in t.result["value"]["losses"]]
+        evals = [t.result["value"]["eval_loss"] for t in trace
+                 if t.kind == "eval" and t.result and t.result["ok"]]
+
+        def committed(b):
+            return [e.body["intent_id"] for e in b.read(0)
+                    if e.type == PayloadType.COMMIT]
+        reader = SqliteBus(os.path.join(root, "bus.db"))
+        try:
+            seen = (reader.tail(), committed(reader))
+        finally:
+            reader.close()
+        mine = (bus.tail(), committed(bus))
+        bus.close()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    step_s = log["step"][1:]
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    save_s = log.get("save", [])
+    tokens = 8 * 64  # the launcher's default global batch x seq len
+    print(f"    intents {[t.kind for t in trace]}; env.step {env.step}; "
+          f"losses {losses}; eval {evals}; a second SqliteBus on the file "
+          f"sees tail {seen[0]} and {len(seen[1])} commits, the agent's "
+          f"bus {mine[0]} and {len(mine[1])}; kernel launches {launches}")
+    print(f"    step time {step_ms:.2f} ms (mean of steps 2-{steps}; step 1 "
+          f"{1e3 * log['step'][0]:.2f} ms) = {tokens * 1e3 / step_ms:.2f} "
+          f"training tokens/s; checkpoints {ckpts}: {ckpt_bytes} B saved "
+          f"in {' + '.join(f'{x:.2f}' for x in save_s)} s (params and "
+          f"AdamW state to host, npz, SHA-256); wall {wall:.2f} s "
+          f"(parameters drawn); peak memory {peak} B | on {smi}")
+    if env.step != steps or len(losses) != steps \
+            or not all(map(math.isfinite, losses + evals)) \
+            or f"data vocab cut to {train.DATA_VOCAB} from " \
+            f"{env.model.cfg.vocab}" not in out.getvalue():
+        raise AssertionError(f"the launcher's training run did not reach "
+                             f"{steps}/{steps} with finite losses and the "
+                             f"data-vocab line")
+    if ckpts != TRAIN_CKPTS or len(save_s) != len(TRAIN_CKPTS):
+        raise AssertionError(f"the launcher's training run listed "
+                             f"checkpoints {ckpts}, not {TRAIN_CKPTS}")
+    if seen != mine or not mine[1]:
+        raise AssertionError("a second reader of the SQLite log sees "
+                             "another tail or other commits")
+    if any(launches.values()):
+        raise AssertionError("a serving kernel launched during training")
+
+
+def _mem_available():
+    """The host's available memory in bytes (``MemAvailable``), or None
+    where ``/proc/meminfo`` does not say."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def run_examples(smi):
+    """Phase 7c: the port's two examples on the card at smoke scale, each
+    with its own asserts (balance 135; the crash, recovery to step 48 and
+    a falling loss); the standby executor's reboot Result must be on the
+    training example's log."""
+    import torch
+    from repro_torch.core import PayloadType
+    for name, argv in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        agents = []
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(sys, "argv", [name] + argv), \
+                contextlib.redirect_stdout(out):
+            spec.loader.exec_module(module)  # the quickstart runs here
+            if hasattr(module, "main"):
+                build = module.build_training_agent
+
+                def recorded(*args, **kw):
+                    agents.append(build(*args, **kw))
+                    return agents[-1]
+                module.build_training_agent = recorded
+                module.main()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = out.getvalue().splitlines()
+        print(f"  examples/{name}.py {' '.join(argv)}: {len(lines)} lines, "
+              f"last {lines[-1]!r}; wall {wall:.2f} s | on {smi}")
+        if agents:
+            reboots = [e.body["executor_id"] for e in agents[0].bus.read(0)
+                       if e.type == PayloadType.RESULT
+                       and e.body["intent_id"] == "__reboot__"]
+            print("    " + "\n    ".join(lines[:2]) + f"\n    reboot "
+                  f"Results from {reboots}; {lines[-3]}")
+            if len(reboots) != 1 or \
+                    not lines[0].startswith("!! executor died at step 27"):
+                raise AssertionError("the training example did not crash at "
+                                     "step 27 and reboot its standby once")
+
+
+def slice_entry_points(smi):
+    """Phase 10: slice 7, the entry points and the int8 KV cache at full
+    width. Returns the launchers' kernel launches."""
+    import torch
+    print(f"[slice 7] the launchers, the examples and the int8 KV cache on "
+          f"{smi}")
+    t0 = time.perf_counter()
+    q_launches, cfg, params = launch_serve(
+        "qwen3_4b", {"flash_attention": 36}, smi)
+    n_params = sum(p.numel() for p in _leaves(params))
+    int8_cache(cfg, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    m_launches, _, params = launch_serve(
+        "mamba2_780m", {"ssd_intra": 48}, smi)
+    del params
+    torch.cuda.empty_cache()
+    launch_train(n_params, smi)
+    torch.cuda.empty_cache()
+    run_examples(smi)
+    print(f"  slice 7 wall {time.perf_counter() - t0:.2f} s | on {smi}")
+    return {"flash_attention": q_launches["flash_attention"],
+            "ssd_intra": m_launches["ssd_intra"]}
 
 
 def _leaves(tree):

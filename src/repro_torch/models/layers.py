@@ -2,8 +2,8 @@
 RMSNorm, RoPE, GQA attention (dense reference and chunked online
 softmax), the qk-normed attention projections, the self-attention and
 cross-attention blocks, the gated MLP and the decode-time KV cache
-(``cache_update``, ``decode_attention_block``; the int8 ``kv_quant``
-cache is not ported).
+(``cache_update``, ``decode_attention_block``, with the int8 ``kv_quant``
+cache: ``quantize_kv``, ``dequantize_kv``, ``cache_kv_values``).
 
 Plain functions on tensors; params are the nested dicts of
 ``models.params`` in the reference's einsum layouts. The reference's
@@ -242,31 +242,59 @@ def mlp_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg
 
 # -- decode-time KV cache -----------------------------------------------------
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) int8 quantization, the reference's: x (..., Dh) ->
+    (int8 (..., Dh), fp32 scale (...,)), ``scale = amax / 127 + 1e-12``
+    and the ints ``round(x / scale)`` (half to even, as ``jnp.round``)
+    clipped to +-127. 1 B an element plus 4 B a (token, head)."""
+    x = x.float()
+    scale = torch.amax(torch.abs(x), dim=-1) / 127.0 + 1e-12
+    q = torch.clamp(torch.round(x / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale[..., None]
+
+
 def cache_update(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
                  v_new: torch.Tensor, cur: int, window: Optional[int]
                  ) -> Dict[str, torch.Tensor]:
     """Write one token's k/v (B, 1, Kv, Dh) at position ``cur`` into a
-    cache {k/v (B, S_cache, Kv, Dh), pos (S_cache,) with -1 = empty}.
+    cache {k/v (B, S_cache, Kv, Dh), pos (S_cache,) with -1 = empty}; a
+    quantized cache (int8 k/v, with ``k_scale``/``v_scale`` (B, S_cache,
+    Kv) in fp32) gets ``quantize_kv`` of the token's k/v and their scales.
     Returns a new cache; the given one is not modified.
 
     With a window (the model's layer stack always passes one: INF_WINDOW
     where there is none) the slot is the ring-buffer slot ``cur % S_cache``.
     Without one it is ``cur``, clamped to the last slot as the reference's
     ``dynamic_update_slice`` clamps it."""
-    if "k_scale" in cache:
-        raise NotImplementedError("cache_update: the int8 kv_quant cache is "
-                                  "not ported yet")
     s_cache = cache["k"].shape[1]
     cur = int(cur)
     slot = cur % s_cache if window is not None else min(cur, s_cache - 1)
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        writes = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
+    else:
+        writes = (("k", k_new), ("v", v_new))
     out = dict(cache)
-    for name, new in (("k", k_new), ("v", v_new)):
+    for name, new in writes:
         t = cache[name].clone()
         t[:, slot] = new[:, 0].to(t.dtype)
         out[name] = t
     out["pos"] = cache["pos"].clone()
     out["pos"][slot] = cur
     return out
+
+
+def cache_kv_values(cache: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dequantized (or raw) K/V views of a cache."""
+    if "k_scale" in cache:
+        return (dequantize_kv(cache["k"], cache["k_scale"]),
+                dequantize_kv(cache["v"], cache["v_scale"]))
+    return cache["k"], cache["v"]
 
 
 def decode_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
@@ -280,7 +308,8 @@ def decode_attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg,
     q, k_new, v_new = attn_project_qkv(x, p, cfg, positions)
     new_cache = cache_update(cache, k_new, v_new, cur, window)
     pos_k = new_cache["pos"].expand(B, -1)
-    o = attention_ref(q, new_cache["k"], new_cache["v"], pos_q=positions,
+    k_eff, v_eff = cache_kv_values(new_cache)
+    o = attention_ref(q, k_eff, v_eff, pos_q=positions,
                       pos_k=pos_k, causal=True, window=window,
                       softcap=cfg.attn_softcap, scale=cfg.attn_logit_scale)
     return attn_out(o, p), new_cache

@@ -23,7 +23,11 @@ kernel of each prefill: the flash-attention kernel for every attention
 the decoder's self- and cross-attention), the SSD intra-chunk kernel for
 every mamba2 layer. Decode runs the plain attention. The loss runs the
 plain paths under autograd whatever ``use_kernel`` says: neither kernel
-has a backward. An unknown family raises ``ValueError``.
+has a backward. ``kv_quant`` keeps the attention caches (the layers',
+the hybrid's shared block's, the audio decoder's self-attention) in int8
+with an fp32 scale a (token, head), as the reference's; the audio
+family's encoder K/V stay in the model's dtype. An unknown family raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from . import ssm as ssm_lib
 from .moe import moe_block
 from .layers import (attention, attn_out, attn_project_qkv,
                      cross_attention_block, decode_attention_block,
-                     mlp_block, rmsnorm, self_attention_block)
+                     mlp_block, quantize_kv, rmsnorm, self_attention_block)
 from .params import padded_vocab, unstack_layers
 
 INF_WINDOW = 1 << 30  # "no window" sentinel for per-layer window arrays
@@ -52,9 +56,10 @@ FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 class Model:
     def __init__(self, cfg: ArchConfig, dtype: torch.dtype = torch.float32,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, kv_quant: bool = False):
         self.cfg = cfg
         self.dtype = dtype
+        self.kv_quant = kv_quant  # int8 KV caches (decode memory lever)
         # the prefill's kernel (flash attention for dense, the SSD
         # intra-chunk terms for ssm) on CUDA tensors or, with False, the
         # reference's plain code on any device (the run that the kernel's
@@ -158,13 +163,16 @@ class Model:
         K/V of ``min(window or seq_len, seq_len)`` slots for each of its
         ``n_layers // hybrid_attn_every`` applications; the audio
         family's encoder K/V (``cross_k`` / ``cross_v``, zeros of
-        ``enc_seq`` rows a layer). ``device=None`` means the card."""
+        ``enc_seq`` rows a layer). With ``kv_quant`` the K/V are int8
+        zeros beside ``k_scale``/``v_scale`` (n, batch, slots, Kv) fp32
+        zeros. ``device=None`` means the card."""
         family = self._family()
         dev = resolve_device(device)
         cfg = self.cfg
         L = cfg.n_layers
         kv = functools.partial(_kv_cache, batch=batch, kv=cfg.n_kv_heads,
-                               dh=cfg.head_dim, dtype=self.dtype, device=dev)
+                               dh=cfg.head_dim, dtype=self.dtype, device=dev,
+                               quant=self.kv_quant)
         if family in ("dense", "moe", "vlm", "audio"):
             cache = {"attn": kv(L, self.cache_len(seq_len))}
         else:
@@ -202,7 +210,8 @@ class Model:
             x = x + attn_out(o, lp["attn"])
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
             x = x + self._ffn(h, lp)[0]
-            kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
+            kvs.append(_collect_kv(k, v, cl, positions, self.dtype,
+                                   self.kv_quant))
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
         return x, _pad_kv(_stack_kv(kvs), extra_cache, cfg)
 
@@ -381,7 +390,7 @@ class Model:
                 window=cfg.window or INF_WINDOW, softcap=cfg.attn_softcap,
                 kv_chunk=kv_chunk)
             return attn_out(o, ap), _collect_kv(k, v, wl, positions,
-                                                self.dtype)
+                                                self.dtype, self.kv_quant)
         x, ssm_cache, kvs = self._hybrid_segments(
             params, x, None, shared, use_kernel=self.use_kernel)
         return x, {"ssm": ssm_cache,
@@ -484,7 +493,8 @@ class Model:
                                           positions=positions, flash=flash)
             h = rmsnorm(x, lp["ln2"], cfg.rmsnorm_eps)
             x = x + mlp_block(h, lp["mlp"], cfg)
-            kvs.append(_collect_kv(k, v, cl, positions, self.dtype))
+            kvs.append(_collect_kv(k, v, cl, positions, self.dtype,
+                                   self.kv_quant))
             cks.append(ek.to(self.dtype))
             cvs.append(ev.to(self.dtype))
         x = rmsnorm(x, params["final_norm"], cfg.rmsnorm_eps)
@@ -629,14 +639,22 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor
 
 
 def _kv_cache(n: int, slots: int, *, batch: int, kv: int, dh: int, dtype,
-              device) -> Dict[str, torch.Tensor]:
+              device, quant: bool) -> Dict[str, torch.Tensor]:
     """Empty K/V caches of ``n`` layers (or applications): k/v (n, batch,
-    slots, kv, dh) zeros, pos (n, slots) all -1."""
+    slots, kv, dh) zeros (int8 with ``quant``, beside fp32 zero
+    ``k_scale``/``v_scale`` (n, batch, slots, kv)), pos (n, slots) all
+    -1."""
     shape = (n, batch, slots, kv, dh)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.full((n, slots), -1, dtype=torch.int32,
-                              device=device)}
+    kv_dtype = torch.int8 if quant else dtype
+    c = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+         "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+         "pos": torch.full((n, slots), -1, dtype=torch.int32,
+                           device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                  device=device)
+    return c
 
 
 def _ssm_cache(cfg, L: int, batch: int, dtype, device
@@ -664,20 +682,29 @@ def _ssm_olds(cache, L: int) -> List[Any]:
 
 def _stack_kv(kvs: List[Dict[str, torch.Tensor]]
               ) -> Dict[str, torch.Tensor]:
-    """Per-layer K/V caches stacked on a leading layer axis."""
-    return {n: torch.stack([c[n] for c in kvs]) for n in ("k", "v", "pos")}
+    """Per-layer K/V caches (with their scales, where quantized) stacked
+    on a leading layer axis."""
+    return {n: torch.stack([c[n] for c in kvs]) for n in kvs[0]}
 
 
-def _collect_kv(k, v, cl, positions, dtype) -> Dict[str, torch.Tensor]:
-    """Prefill-path cache slice of one layer: the last ``cl`` positions."""
-    return {"pos": positions[0, -cl:].to(torch.int32),
-            "k": k[:, -cl:].to(dtype), "v": v[:, -cl:].to(dtype)}
+def _collect_kv(k, v, cl, positions, dtype, quant: bool
+                ) -> Dict[str, torch.Tensor]:
+    """Prefill-path cache slice of one layer: the last ``cl`` positions,
+    int8 with their scales (``quantize_kv``) under ``quant``."""
+    out = {"pos": positions[0, -cl:].to(torch.int32)}
+    if quant:
+        (out["k"], out["k_scale"]), (out["v"], out["v_scale"]) = (
+            quantize_kv(k[:, -cl:]), quantize_kv(v[:, -cl:]))
+    else:
+        out.update(k=k[:, -cl:].to(dtype), v=v[:, -cl:].to(dtype))
+    return out
 
 
 def _pad_kv(attn_cache: Dict[str, torch.Tensor], extra: int, cfg
             ) -> Dict[str, torch.Tensor]:
-    """Right-pad prefilled KV caches (k/v (L, B, cl, Kv, Dh), pos (L, cl))
-    with ``extra`` empty slots (pos -1) so decode can append. No-op for
+    """Right-pad prefilled KV caches (k/v (L, B, cl, Kv, Dh), pos (L, cl),
+    and the scales (L, B, cl, Kv) where quantized) with ``extra`` empty
+    slots (pos -1, zero k/v and scales) so decode can append. No-op for
     ring-buffered (windowed) caches already at their window size, and when
     extra == 0."""
     if extra <= 0:
@@ -690,5 +717,8 @@ def _pad_kv(attn_cache: Dict[str, torch.Tensor], extra: int, cfg
     out = dict(attn_cache)
     out["k"] = F.pad(attn_cache["k"], (0, 0, 0, 0, 0, extra))
     out["v"] = F.pad(attn_cache["v"], (0, 0, 0, 0, 0, extra))
+    for name in ("k_scale", "v_scale"):
+        if name in attn_cache:
+            out[name] = F.pad(attn_cache[name], (0, 0, 0, extra))
     out["pos"] = F.pad(attn_cache["pos"], (0, extra), value=-1)
     return out

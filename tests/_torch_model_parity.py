@@ -62,6 +62,28 @@ def setup(arch, **variant):
     return jcfg, tcfg, jparams, params_from_numpy(jparams, "cpu")
 
 
+_SETUPS = {}
+
+
+def conditioned_setup(arch):
+    """``setup(arch)``, made once a process, with whisper_small's ``wq``
+    and ``wk`` (encoder, decoder and cross) scaled by 1/4 on both sides:
+    its smoke attention scores then have a std near 1 rather than ~23,
+    where its float32 results are ill-conditioned on both sides
+    (``tests/test_torch_encdec_vlm.py``'s docstring gives the numbers)."""
+    if arch not in _SETUPS:
+        jcfg, tcfg, jparams, _ = setup(arch)
+        if arch == "whisper_small":
+            for tree in (jparams["enc_layers"]["attn"],
+                         jparams["layers"]["attn"],
+                         jparams["layers"]["cross"]):
+                tree["wq"] = tree["wq"] * np.float32(0.25)
+                tree["wk"] = tree["wk"] * np.float32(0.25)
+        _SETUPS[arch] = (jcfg, tcfg, jparams,
+                         params_from_numpy(jparams, "cpu"))
+    return _SETUPS[arch]
+
+
 def close(got, want, **tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), **tol)
 

@@ -7,7 +7,7 @@ CPU, on their smoke configs with the reference's parameters carried over:
 prefill on seeded unit-normal frontend inputs with every cache leaf (the
 decoder's K/V and positions, whisper's ``cross_k`` / ``cross_v``) and 4
 decode steps (vlm's from ``plen + n_frontend_tokens``), the loss and its
-gradients (vlm's logits with the prefix cut) under remat none and full,
+gradients (vlm's logits with the prefix cut) under remat none, dots and full,
 ``h_serve_batch`` with its zero frontends, and the learned positions'
 clamp past the 32768-row table. The copied config files are the
 reference's. Broken controls: whisper's cross K/V zeroed in the cache,
@@ -39,27 +39,12 @@ import numpy as np  # noqa: E402
 import _torch_model_parity as parity  # noqa: E402
 from repro.models.model import Model as JaxModel  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.params import params_from_numpy  # noqa: E402
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["whisper_small", "internvl2_26b"]
 S = 40
-_SETUPS = {}
-
-
-def _setup(arch):
-    if arch not in _SETUPS:
-        jcfg, tcfg, jparams, _ = parity.setup(arch)
-        if arch == "whisper_small":
-            for tree in (jparams["enc_layers"]["attn"],
-                         jparams["layers"]["attn"],
-                         jparams["layers"]["cross"]):
-                tree["wq"] = tree["wq"] * np.float32(0.25)
-                tree["wk"] = tree["wk"] * np.float32(0.25)
-        _SETUPS[arch] = (jcfg, tcfg, jparams,
-                         params_from_numpy(jparams, "cpu"))
-    return _SETUPS[arch]
+_setup = parity.conditioned_setup
 
 
 @pytest.mark.parametrize("arch", ["zamba2_1p2b"] + ARCHS)
@@ -115,7 +100,7 @@ def _values(tree):
     return np.asarray(tree.value)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch, remat):
     met = parity.loss_and_grads(_setup(arch), remat=remat)

@@ -9,7 +9,7 @@ states of every layer, the shared block's K/V and slot positions for each
 application) and 4 decode steps from a 40-token prompt (past the smoke
 window of 32: the shared cache is a ring buffer) and from a 20-token one
 (the cache grows toward the window), the loss and its gradients under
-remat none and full, and ``h_serve_batch``; beside a broken control, the
+remat none, dots and full, and ``h_serve_batch``; beside a broken control, the
 shared block skipped at the last segment, which must miss the logits'
 limit, and a control of the gradients alone, the gradient through the
 last segment's shared block cut by a hundredth, which must miss the
@@ -114,7 +114,7 @@ def test_init_cache_decodes_as_the_prefill():
     parity.close(logits[:, 0], full[:, -1], **TOL["five_layers"])
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_loss_and_grads_match_reference(case, remat):
     met = parity.loss_and_grads(_setup(case), remat=remat, **GRAD_TOL[case])

@@ -1,7 +1,8 @@
-"""``repro_torch``, ``chip_smoke.py`` and ``tools/kernel_ab.py`` stand
-alone: no import of ``jax`` or of the reference package ``repro``, by an
-AST scan of every module and by importing the serving and the training
-entry points in a fresh interpreter."""
+"""``repro_torch``, ``chip_smoke.py``, ``tools/kernel_ab.py`` and the
+port's examples stand alone: no import of ``jax`` or of the reference
+package ``repro``, by an AST scan of every module and by importing the
+serving and the training modules and the launchers in a fresh
+interpreter."""
 import ast
 import os
 import subprocess
@@ -13,8 +14,11 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "tools" / "kernel_ab.py", ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [
+    ROOT / "tools" / "kernel_ab.py", ROOT / "chip_smoke.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "fault_tolerant_train_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -32,7 +36,7 @@ def _imported_modules(path: Path):
 
 
 def test_port_modules_exist():
-    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-2]}
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PACKAGE_FILES}
     assert {"repro_torch/serving/server.py", "repro_torch/core/agent.py",
             "repro_torch/kernels/paged_attention.py",
             "repro_torch/kernels/ssd_scan.py", "repro_torch/models/ssm.py",
@@ -48,11 +52,13 @@ def test_port_modules_exist():
             "repro_torch/configs/chatglm3_6b.py",
             "repro_torch/configs/codeqwen15_7b.py",
             "repro_torch/configs/mixtral_8x7b.py",
-            "repro_torch/configs/kimi_k2_1t_a32b.py"} <= names
+            "repro_torch/configs/kimi_k2_1t_a32b.py",
+            "repro_torch/launch/serve.py",
+            "repro_torch/launch/train.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}
-    assert (ROOT / "chip_smoke.py").exists()
+    assert all(p.exists() for p in PORT_FILES[len(PACKAGE_FILES):])
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -80,3 +86,8 @@ def test_serving_import_pulls_in_neither():
 
 def test_training_import_pulls_in_neither():
     _import_pulls_in_neither("repro_torch.train.trainer")
+
+
+def test_launch_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.launch.serve")
+    _import_pulls_in_neither("repro_torch.launch.train")
