@@ -144,7 +144,22 @@ code is not 0 and no result line is printed:
    second reader opens, its step time, peak memory and the step-8
    checkpoint's save seconds and bytes; the port's two
    examples at smoke scale on the card with their own asserts.
-11. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those
+11. slice 8 — the dry-run (``repro_torch.launch.dryrun``) on the card's
+   machine: 8a traces all 40 (arch x shape) cells on the meta device at
+   full depth (33 ok, 7 documented skips), and each decode cell of a
+   family with attention caches again with the int8 cache, with nothing
+   allocated on the card; 8b builds each decode cell whose
+   ``argument_bytes`` is at most half the card (a decode step copies its
+   cache) for real at full width, holds the bytes the card allocates to
+   the record's (within 512 B a tensor; an int8 cell's allocation against
+   its fp32 record is the broken control that must fail), runs one decode
+   step at the last position the cache holds, holds the logits' and every
+   cache leaf's shape and dtype to the meta trace's and the logits
+   finite, and prints the peak memory over the arguments and the step's
+   median time beside the roofline's (whose cache term counts K/V and
+   conv state at bf16) and beside ``argument_bytes / HBM_BW``, the time to
+   read every argument once. No kernel launches in this slice.
+12. a ``{"kernels": [...]}`` JSON line (each kernel's launches are those
    of its governed kernel runs, named on the line before), the card's
    name and power limit, and last the ``{"ok": true, "device": ...}``
    line.
@@ -170,12 +185,12 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the card's published peaks (H100 SXM data sheet, 700 W): bytes/s of HBM3
+# and fp32 FLOP/s outside the tensor cores (the kernels do fp32 FMAs)
+from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS  # noqa: E402
+
 SEED = 0
 KERNEL_TOL = 1e-4  # unit-normal inputs, fp32; sums run in another order
-# the card's published peaks (H100 SXM data sheet, 700 W): bytes/s of HBM3
-# and fp32 FLOP/s outside the tensor cores (the kernel does fp32 FMAs)
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_FLOP_S = 67e12
 # main-path geometry (qwen3_4b at full width)
 MAX_BATCH, PAGE_SIZE, NUM_PAGES, MAX_PAGES_PER_SEQ = 4, 16, 257, 64
 KERNELS = ("paged_attention", "ssd_scan", "flash_attention")  # csrc/
@@ -231,6 +246,14 @@ TRAIN_CKPTS = [8]
 EXAMPLES = (("quickstart_torch", []),
             ("fault_tolerant_train_torch", ["--steps", "48"]))
 INT8_SOFTMAX_LIMIT = 0.05
+# slice 8: the dry-run's cells (all, ok, skipped), the decode cells built
+# on the card (argument_bytes at most half its memory: a decode step copies
+# its cache), the caching allocator's rounding a tensor, and the decode
+# step's timing (warm-ups, then the median of the timed runs)
+DRYRUN_CELLS = (40, 33, 7)
+ON_CARD_BYTES = 40e9
+ALLOC_ROUND = 512
+DECODE_WARMUP, DECODE_TIMED = 2, 5
 # slice 1's governed kernel run is made once on each of these logs: the
 # in-memory bus, SQLite with group commit, and the segmented KV store
 SERVE_BUSES = ("memory", "sqlite", "kv")
@@ -438,8 +461,8 @@ def time_paged_attention(case, flush):
     n_bytes = 4 * (q.numel() + 2 * ctx * kv * dh + bt.numel() + cl.numel()
                    + q.numel())
     n_ops = 4 * ctx * h * dh
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = n_ops / PEAK_FP32_FLOP_S * 1e3
+    bytes_ms = n_bytes / HBM_BW * 1e3
+    ops_ms = n_ops / PEAK_FLOPS * 1e3
     # yardstick only: one library call on K/V gathered beforehand
     n_ctx = bt.shape[1] * kp.shape[1]
     kd = kp[bt.long()].reshape(s_n, n_ctx, kv, dh).repeat_interleave(
@@ -694,8 +717,8 @@ def time_ssd_intra(case, flush):
     n_ops = 2 * bsz * nc * (g * tri_n * n + h * (tri_n * p + q * p * n))
     n_bytes = 4 * (2 * x.numel() + dt.numel() + a.numel() + b.numel()
                    + c.numel() + bsz * nc * h * p * n + bsz * nc * h)
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = n_ops / PEAK_FP32_FLOP_S * 1e3
+    bytes_ms = n_bytes / HBM_BW * 1e3
+    ops_ms = n_ops / PEAK_FLOPS * 1e3
     # yardstick only (no single library call computes ssd_intra): the two
     # batched matmuls of the intra-chunk products with the mask, dt and
     # decay applied between them, on inputs laid out beforehand
@@ -1149,8 +1172,8 @@ def time_flash_attention(case, flush, softcap=None, window=None,
                if causal else sq * sk)
     n_ops = 4 * dh * visible * bsz * h
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
-    ops_ms = n_ops / PEAK_FP32_FLOP_S * 1e3
+    bytes_ms = n_bytes / HBM_BW * 1e3
+    ops_ms = n_ops / PEAK_FLOPS * 1e3
     # yardstick only: one library call, on K/V repeated to H heads and all
     # three laid out (B, heads, S, Dh) beforehand
     qt = q.transpose(1, 2).contiguous()
@@ -1462,8 +1485,13 @@ def main() -> None:
 
     # 10. slice 7: the launchers, the examples and the int8 KV cache
     entry = slice_entry_points(smi)
+    torch.cuda.empty_cache()
 
-    # 11. result lines; each kernel's launches are those of its governed
+    # 11. slice 8: the dry-run of every cell, and the decode cells that
+    # fit half the card built and stepped on it
+    slice_dryrun(smi)
+
+    # 12. result lines; each kernel's launches are those of its governed
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + new["paged_attention"],
@@ -3296,6 +3324,202 @@ def slice_entry_points(smi):
     print(f"  slice 7 wall {time.perf_counter() - t0:.2f} s | on {smi}")
     return {"flash_attention": q_launches["flash_attention"],
             "ssd_intra": m_launches["ssd_intra"]}
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the dry-run on the H100
+# ---------------------------------------------------------------------------
+
+def _alloc_stat(key):
+    """One of the caching allocator's counters; an allocator that has not
+    yet allocated reports none, which is 0."""
+    import torch
+    return torch.cuda.memory_stats().get(key, 0)
+
+
+def dryrun_sweep():
+    """8a: every (arch x shape) cell traced on the meta device at full
+    depth (``launch.dryrun.main(["--all"])``), then every decode cell of a
+    family with attention caches again with the int8 cache. Nothing may
+    be allocated on the card. Returns the records by (arch, shape,
+    kv_quant)."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    # the allocator's running count of allocations (frees of earlier
+    # slices' tensors, collected meanwhile, do not move it)
+    before = _alloc_stat("allocation.all.allocated")
+    held = torch.cuda.memory_allocated()
+    cells = dryrun.main(["--all"])
+    records = {(a, s, False): c for (a, s), c in cells.items()}
+    n_ok = sum(c["status"] == "ok" for c in cells.values())
+    n_skip = sum(c["status"] == "skipped" for c in cells.values())
+    if (len(cells), n_ok, n_skip) != DRYRUN_CELLS:
+        raise AssertionError(f"dry-run: {len(cells)} cells, {n_ok} ok, "
+                             f"{n_skip} skipped; want {DRYRUN_CELLS}")
+    for (arch, shape), cell in cells.items():
+        if cell["status"] == "ok" and SHAPES[shape].kind == "decode" \
+                and get_config(arch).family != "ssm":
+            rec = dryrun.run_cell(arch, shape, kv_quant=True,
+                                  extra_tag="int8")
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry-run {arch} {shape} int8: "
+                                     f"{rec.get('error')}")
+            records[arch, shape, True] = rec
+    n_alloc = _alloc_stat("allocation.all.allocated") - before
+    if n_alloc:
+        raise AssertionError(f"the dry-run allocated on the card {n_alloc} "
+                             f"times")
+    wall = time.perf_counter() - t0
+    print(f"  8a: {n_ok} ok + {len(records) - len(cells)} int8 decode "
+          f"cells, {n_skip} skipped, 0 errors; sweep wall {wall:.2f} s "
+          f"(host; no allocation on the card; memory_allocated moved "
+          f"{torch.cuda.memory_allocated() - held} B meanwhile, by frees "
+          f"alone)")
+    return records
+
+
+def _build_decode_cell(arch, shape, kv_quant):
+    """A decode cell's arguments built for real on the card at full width:
+    the parameters (seeded), the empty cache and the tokens, with what the
+    caching allocator counted for them: ``requested`` (the bytes asked
+    for) and ``allocated`` (its blocks) over what it held ``before``, and
+    how many tensors were allocated."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import init_params
+    cfg, sh = get_config(arch), SHAPES[shape]
+    model = Model(cfg, kv_quant=kv_quant)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    req0 = _alloc_stat("requested_bytes.all.current")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, g, "cuda")
+    cache = model.init_cache(sh.global_batch, sh.seq_len)
+    tokens = torch.randint(0, cfg.vocab, (sh.global_batch, 1),
+                           dtype=torch.int32, device="cuda", generator=g)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params)) + list(_leaves(cache)) + [tokens]
+    return {"model": model, "params": params, "cache": cache,
+            "tokens": tokens, "before": alloc0,
+            "allocated": torch.cuda.memory_allocated() - alloc0,
+            "requested": _alloc_stat("requested_bytes.all.current") - req0,
+            "tensors": len(leaves)}
+
+
+def _held_bytes(built, rec):
+    """The bytes requested on the card against the record's
+    ``argument_bytes``, within ALLOC_ROUND a tensor. Returns (the gap,
+    within)."""
+    gap = built["requested"] - rec["argument_bytes"]
+    return gap, 0 <= gap <= built["tensors"] * ALLOC_ROUND
+
+
+def decode_cell_on_card(rec, fp32_rec, smi):
+    """8b for one cell: build it, hold the bytes, run one decode step at
+    the last position its cache holds, hold the outputs' shapes to the
+    meta trace's, time it against the roofline."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.dryrun import tree_specs
+    arch, shape, q = rec["arch"], rec["shape"], rec["kv_quant"]
+    label = f"{arch} {shape}{' int8' if q else ''}"
+    built = _build_decode_cell(arch, shape, q)
+    model, params, cache, tokens = (built[k] for k in ("model", "params",
+                                                       "cache", "tokens"))
+    gap, ok = _held_bytes(built, rec)
+    print(f"  8b {label}: {built['tensors']} tensors requested "
+          f"{built['requested']} B against argument_bytes "
+          f"{rec['argument_bytes']} B: gap {gap} B (limit "
+          f"{built['tensors'] * ALLOC_ROUND} B); the allocator's blocks "
+          f"{built['allocated']} B (not held)")
+    if not ok:
+        raise AssertionError(f"{label}: the card holds {built['requested']}"
+                             f" B requested; the meta reckoning "
+                             f"{rec['argument_bytes']} B")
+    if fp32_rec is not None:  # broken control: the fp32 record
+        cgap, cok = _held_bytes(built, fp32_rec)
+        print(f"    control: the same allocation against the fp32 record's "
+              f"{fp32_rec['argument_bytes']} B: gap {cgap} B, within the "
+              f"limit {cok}")
+        if cok:
+            raise AssertionError("the fp32 record passed the int8 check")
+    cur = SHAPES[shape].seq_len - 1
+    torch.cuda.reset_peak_memory_stats()
+    logits, new_cache = model.decode_step(params, cache, tokens, cur)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - built["before"]
+    want = rec["output_shapes"]
+    got = tree_specs({"logits": logits, "cache": new_cache})
+    if got != want:
+        raise AssertionError(f"{label}: outputs {got} vs the meta trace's "
+                             f"{want}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    del logits, new_cache
+    times = []
+    for _ in range(DECODE_WARMUP + DECODE_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.decode_step(params, cache, tokens, cur)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    step = sorted(times[DECODE_WARMUP:])[DECODE_TIMED // 2]
+    rl = rec["roofline"]
+    # a decode step reads every argument at least once: a true lower bound,
+    # where the analytic roofline counts K/V and conv state at bf16
+    read_s = rec["argument_bytes"] / HBM_BW
+    print(f"    decode step at cur {cur}: logits {want['logits'][0]} finite,"
+          f" every cache leaf's shape and dtype as traced | the cell's peak "
+          f"{peak} B, {peak - rec['argument_bytes']} B over argument_bytes"
+          f" | step {step * 1e3:.3f} ms (median of "
+          f"{DECODE_TIMED} after {DECODE_WARMUP}; all "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) | roofline "
+          f"{rl['step_time_s'] * 1e3:.4f} ms ({rl['bottleneck']}) = "
+          f"{100 * rl['step_time_s'] / step:.2f}% of the step (its cache "
+          f"term is analytic.cache_bytes: bf16 K/V and conv state) | "
+          f"argument_bytes / HBM_BW {read_s * 1e3:.4f} ms = "
+          f"{100 * read_s / step:.2f}% of the step | on {smi}")
+    del params, cache, tokens, built
+
+
+def slice_dryrun(smi):
+    """Phase 11: slice 8, the dry-run (8a) and the decode cells whose
+    arguments fit half the card, built for real on it (8b). No kernel
+    launches: the decode steps run the plain attention."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    print(f"[slice 8] the dry-run on {smi}")
+    t0 = time.perf_counter()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    records = dryrun_sweep()
+    # half the card: a decode step copies its cache (cache_update)
+    on_card = [k for k, r in records.items()
+               if r["status"] == "ok" and SHAPES[r["shape"]].kind == "decode"
+               and r["argument_bytes"] <= ON_CARD_BYTES]
+    print(f"  8b: the decode cells with argument_bytes <= "
+          f"{ON_CARD_BYTES / 1e9:.0f} GB: "
+          + ", ".join(f"{a} {s}{' int8' if q else ''} "
+                      f"({records[a, s, q]['argument_bytes'] / 1e9:.2f} GB)"
+                      for a, s, q in on_card))
+    if not on_card:
+        raise AssertionError("no decode cell fits half the card")
+    for a, s, q in on_card:
+        decode_cell_on_card(records[a, s, q],
+                            records[a, s, False] if q else None, smi)
+        torch.cuda.empty_cache()
+    if not any(q for _, _, q in on_card):
+        raise AssertionError("no int8 cell for the broken control")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched in slice 8: {launches}")
+    print(f"  slice 8 wall {time.perf_counter() - t0:.2f} s | kernel "
+          f"launches {launches} | on {smi}")
 
 
 def _leaves(tree):

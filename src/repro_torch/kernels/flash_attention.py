@@ -9,8 +9,9 @@ query ``q`` when ``k <= q``, also when Sq != Sk), the window keeps
 It launches the kernel in ``csrc/flash_attention.cu`` (replacing the
 reference's Pallas ``_flash_kernel``) for CUDA tensors and takes
 ``flash_mha_plain`` only for CPU tensors; on the card it launches or
-raises, it never falls back. ``flash_mha.launches`` counts the kernel
-launches. The kernel takes head dims up to 256, as the reference (which
+raises, it never falls back. On the meta device (the dry-run,
+``launch.dryrun``) it checks the kernel's limits and returns the empty
+meta output. ``flash_mha.launches`` counts the kernel launches. The kernel takes head dims up to 256, as the reference (which
 pads any head dim to a multiple of 128) does, and reads q/k/v by their
 strides; an input whose head dim is not unit-stride is copied first.
 
@@ -102,7 +103,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_mha: no kernel for {q.device}")
     _check(q, k, v, window, softcap)
     # the kernel copies rows of Dh contiguous floats
@@ -111,7 +112,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kv = k.shape[1], k.shape[2]
     out = torch.empty((bsz, sq, h, dh), dtype=torch.float32,
                       device=q.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":  # meta: the dry-run
         return out
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     # a window that reaches past every key masks nothing (the model passes

@@ -10,7 +10,9 @@ Per (batch, chunk, head), with ``cs = cumsum(dt * a)`` along the chunk:
 ``ssd_intra`` launches the kernel in ``csrc/ssd_scan.cu`` (replacing the
 reference's Pallas ``_ssd_kernel``) for CUDA tensors and takes
 ``ssd_intra_plain`` only for CPU tensors; on the card it launches or
-raises, it never falls back. ``ssd_intra.launches`` counts the kernel
+raises, it never falls back. On the meta device (the dry-run,
+``launch.dryrun``) it checks the kernel's limits and returns empty meta
+tensors of the outputs' shapes. ``ssd_intra.launches`` counts the kernel
 launches: one per call, whatever the head dim (48 per prefill of
 ``mamba2_780m``).
 
@@ -116,7 +118,7 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """
     if x.device.type == "cpu":
         return ssd_intra_plain(x, dt, a, b, c)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_intra: no kernel for {x.device}")
     _check(x, dt, a, b, c)
     bsz, nc, q, h, p = x.shape
@@ -125,7 +127,7 @@ def ssd_intra(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     states = torch.empty((bsz, nc, h, p, n), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
+    if x.numel() == 0 or x.device.type == "meta":  # meta: the dry-run
         return y, states, decay
     hb, top = _block_plan(bsz * nc, q, h, g, p, n, cuda_lib.n_sm(x.device))
     vec = (p % 4 == 0 and n % 4 == 0 and all(

@@ -2,11 +2,14 @@
 
 * ``serve`` — governed static-batching generation
   (``python -m repro_torch.launch.serve``);
-* ``train`` — governed training (``python -m repro_torch.launch.train``).
+* ``train`` — governed training (``python -m repro_torch.launch.train``);
+* ``dryrun`` — every (arch x shape) cell traced on the meta device at full
+  size and costed on the H100's roofline
+  (``python -m repro_torch.launch.dryrun --all``).
 
-Both run on the card unless ``--device cpu`` is given, and raise without
-CUDA. The reference's ``launch/mesh.py`` builds a TPU device mesh and has
-no counterpart on one card. ``launch/bus_server.py`` and
-``launch/procs.py`` (the networked log and its processes) and
-``launch/dryrun.py`` (the compile on 512 fake devices) are not ported.
+``serve`` and ``train`` run on the card unless ``--device cpu`` is given,
+and raise without CUDA; ``dryrun`` allocates no tensor of a cell and needs
+no card. The reference's ``launch/mesh.py`` builds a TPU device mesh and
+has no counterpart on one card. ``launch/bus_server.py`` and
+``launch/procs.py`` (the networked log and its processes) are not ported.
 """

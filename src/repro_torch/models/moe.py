@@ -66,8 +66,11 @@ def dispatch_plan(top_e: torch.Tensor, n_experts: int, cap: int
     e_flat = top_e.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     e_sort = e_flat[order]
-    counts = torch.bincount(e_flat, minlength=n_experts)
-    starts = torch.cumsum(counts, 0) - counts
+    # each expert's first index in e_sort (sorted), where bincount has no
+    # meta kernel for the dry-run's trace
+    starts = torch.searchsorted(
+        e_sort, torch.arange(n_experts, device=top_e.device,
+                             dtype=e_sort.dtype))
     rank = torch.arange(e_flat.numel(), device=top_e.device) - starts[e_sort]
     return order, e_sort, rank, rank < cap
 

@@ -1,6 +1,7 @@
 """The modules that ``repro_torch`` keeps as copies of the reference's
-(``core/`` and the numpy-only ``data/pipeline.py``) hold the reference's
-text: equal line for line, apart from lines named here.
+(``core/``, the numpy-only ``data/pipeline.py`` and the configs-only
+``distributed/analytic.py``) hold the reference's text: equal line for
+line, apart from lines named here.
 
 * ``core/faults.py`` differs in the first line of its docstring.
 * Every other copy, ``core/bus.py`` and ``core/codec.py`` among them, is
@@ -15,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT, REF = ROOT / "src" / "repro_torch", ROOT / "src" / "repro"
 COPIES = sorted(p.relative_to(PORT).as_posix()
                 for p in (PORT / "core").glob("*.py")
-                if p.name != "__init__.py") + ["data/pipeline.py"]
+                if p.name != "__init__.py") + ["data/pipeline.py",
+                                               "distributed/analytic.py"]
 
 FAULTS_OWN_LINES = [
     '"""Deterministic fault injection for the chaos plane.',
@@ -37,7 +39,7 @@ def _diff(rel):
 def test_the_copies_are_all_checked():
     assert {"core/introspect.py", "core/recovery.py", "core/bus.py",
             "core/codec.py", "core/faults.py", "core/voter.py",
-            "data/pipeline.py"} <= set(COPIES)
+            "data/pipeline.py", "distributed/analytic.py"} <= set(COPIES)
 
 
 @pytest.mark.parametrize("rel", COPIES)

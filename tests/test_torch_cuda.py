@@ -517,3 +517,39 @@ def test_loss_and_backward_launch_no_kernel(cuda, arch):
         model.prefill(params, {"tokens": _train_batch(cfg, cuda)["tokens"]})
     assert (ssd_intra if arch == "mamba2_780m" else flash_mha).launches \
         == cfg.n_layers
+
+
+def test_dryrun_argument_bytes_are_what_the_card_allocates(cuda):
+    """``chip_smoke.py`` slice 8b's memory check on one cell: full-width
+    mamba2_780m long_500k (params, SSM cache, tokens) built on the card
+    requests the meta record's ``argument_bytes`` within 512 B a tensor;
+    the broken control, a reckoning one layer short, must miss."""
+    import dataclasses
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+
+    cfg, sh = get_config("mamba2_780m"), SHAPES["long_500k"]
+    rec = dryrun.run_cell("mamba2_780m", "long_500k", save=False,
+                          verbose=False)
+    torch.cuda.synchronize()
+    req0 = torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    built = {"params": init_params(cfg, g, "cuda"),
+             "cache": Model(cfg).init_cache(sh.global_batch, sh.seq_len),
+             "tokens": torch.zeros((sh.global_batch, 1), dtype=torch.int32,
+                                   device="cuda")}
+    torch.cuda.synchronize()
+    requested = torch.cuda.memory_stats()["requested_bytes.all.current"] \
+        - req0  # the key is there once anything is allocated
+    limit = 512 * len(tree_leaves(built))
+
+    def within(argument_bytes):
+        return 0 <= requested - argument_bytes <= limit
+
+    assert within(rec["argument_bytes"]), (requested, rec["argument_bytes"])
+    short = dryrun.trace_cell(
+        Model(dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)), sh,
+        opt_name="adamw", remat="full", microbatches=1, kv_chunk=1024,
+        compress_grads=False)
+    assert not within(dryrun.tree_bytes(short["args"]))

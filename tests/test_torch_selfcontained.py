@@ -54,7 +54,10 @@ def test_port_modules_exist():
             "repro_torch/configs/mixtral_8x7b.py",
             "repro_torch/configs/kimi_k2_1t_a32b.py",
             "repro_torch/launch/serve.py",
-            "repro_torch/launch/train.py"} <= names
+            "repro_torch/launch/train.py",
+            "repro_torch/launch/dryrun.py",
+            "repro_torch/distributed/analytic.py",
+            "repro_torch/distributed/roofline.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}
@@ -91,3 +94,4 @@ def test_training_import_pulls_in_neither():
 def test_launch_import_pulls_in_neither():
     _import_pulls_in_neither("repro_torch.launch.serve")
     _import_pulls_in_neither("repro_torch.launch.train")
+    _import_pulls_in_neither("repro_torch.launch.dryrun")
