@@ -34,6 +34,24 @@ code is not 0 and no result line is printed:
    timed on the engine, and paged attention is timed at the main path's
    shape beside its byte/operation bound, its plain version and a PyTorch
    library call.
+4b. slice 9 — the port's ``AgentKernel``, its ``serving-continuous``
+   spawn image and the swarm ``Supervisor`` on slice 1's full-width
+   ``qwen3_4b`` parameters, through slice 1's ``serve``. 9a: one agent
+   spawned on SQLite under a ``TrimPolicy``, run on its own threads with
+   a reader thread following the tail, while the host loop calls
+   ``maintain`` (checkpoint, trim, compact) until every request is done,
+   then once more with ``force``; its tokens and paged launches must equal
+   slice 1's, a maintain must trim mid-run, the reader must see every
+   entry with no ``TrimmedError``, no committed-unexecuted intent may be
+   left, a fresh ``SqliteBus`` on the file must read from the trim base
+   what the live bus holds, and (broken control) a read of position 0
+   must raise ``TrimmedError``. 9b: two agents spawned on memory buses
+   serve the requests 4 and 4 (tokens equal slice 1's), a ``Supervisor``
+   sweeps them (each worker's completed intents equal its executed
+   ``serve_step`` intents; health verdicts printed), checkpoints, and a
+   second supervisor's ``bootstrap`` must resume at the checkpoint. Wall,
+   engine and governance times, each maintain's pause and the entries
+   trimmed and compacted are printed.
 5. slice 3 — the governed static-batching serving path at the full width
    of ``qwen3_4b``, on slice 1's parameters: the 8 requests of slice 2 in
    two ``serve_batch`` intents, each dense prefill running the
@@ -142,8 +160,9 @@ code is not 0 and no result line is printed:
    must not); ``repro_torch.launch.train.main`` at full-width
    ``qwen3_4b`` (AdamW, remat dots) for 16 steps on a SQLite log that a
    second reader opens, its step time, peak memory and the step-8
-   checkpoint's save seconds and bytes; the port's two
-   examples at smoke scale on the card with their own asserts.
+   checkpoint's save seconds and bytes; the port's three examples
+   (quickstart, fault-tolerant training, the supervised serving swarm) at
+   smoke scale on the card with their own asserts.
 11. slice 8 — the dry-run (``repro_torch.launch.dryrun``) on the card's
    machine: 8a traces all 40 (arch x shape) cells on the meta device at
    full depth (33 ok, 7 documented skips), and each decode cell of a
@@ -244,7 +263,8 @@ TRAIN_ARGV = ["--full-config", "--arch", "qwen3_4b", "--bus", "sqlite",
               "--steps", "16"]
 TRAIN_CKPTS = [8]
 EXAMPLES = (("quickstart_torch", []),
-            ("fault_tolerant_train_torch", ["--steps", "48"]))
+            ("fault_tolerant_train_torch", ["--steps", "48"]),
+            ("swarm_serve_torch", []))
 INT8_SOFTMAX_LIMIT = 0.05
 # slice 8: the dry-run's cells (all, ok, skipped), the decode cells built
 # on the card (argument_bytes at most half its memory: a decode step copies
@@ -257,6 +277,17 @@ DECODE_WARMUP, DECODE_TIMED = 2, 5
 # slice 1's governed kernel run is made once on each of these logs: the
 # in-memory bus, SQLite with group commit, and the segmented KV store
 SERVE_BUSES = ("memory", "sqlite", "kv")
+# slice 9a's TrimPolicy (slice 1's run writes 239 entries, so a maintain
+# falls mid-run; the entries kept below the low-water mark give the reader
+# thread room), and the deadline of each of slice 9's waits
+TRIM_EVERY, TRIM_RETAIN = 120, 32
+SLICE9_DEADLINE_S = 300.0
+# slice 9's spawns: the full-width qwen3_4b on the card, with slice 1's
+# engine sizes
+SPAWN_IMAGE_KW = {"arch": "qwen3_4b", "smoke_cfg": False, "device": "cuda",
+                  "max_batch": MAX_BATCH, "num_pages": NUM_PAGES,
+                  "page_size": PAGE_SIZE,
+                  "max_pages_per_seq": MAX_PAGES_PER_SEQ}
 # slice 5's attention weights. init_params' rule (normal / sqrt(fan-in),
 # and wq's fan-in is its head count) gives q and k entries of std
 # sqrt(d_model / heads), so without qk norm these configs' scores
@@ -535,13 +566,19 @@ def _bus_meter(bus):
     return meter
 
 
-def serve(cfg, params, requests, use_kernel: bool, bus=None):
+def serve(cfg, params, requests, use_kernel: bool, bus=None, agent=None,
+          run=None):
     """Phase 4: one governed run of the serving agent on the card, on
-    ``bus`` (a fresh MemoryBus by default). Besides the wall, it reads the
-    time inside ``PagedEngine.admit`` and ``PagedEngine.step`` (each ends
-    in a host read of its tokens), the serve_step intents, what the
-    agent's client reads off the log and the calls into the bus
-    (``_bus_meter``)."""
+    ``bus`` (a fresh MemoryBus by default), or of ``agent``, a continuous
+    serving agent built elsewhere (an ``AgentKernel``'s spawn). The engine
+    on ``params`` is set on the agent's env, the admission voter and the
+    policies are added and the requests mailed; then ``run(agent)``
+    drives it (``run_until_idle`` by default) and returns the entries it
+    saw, or None for the log read from its trim base. Besides the wall,
+    it reads the time inside ``PagedEngine.admit`` and
+    ``PagedEngine.step`` (each ends in a host read of its tokens), the
+    serve_step intents, what the agent's client reads off the log and the
+    calls into the bus (``_bus_meter``)."""
     import torch
     from repro_torch.core.acl import BusClient
     from repro_torch.core.entries import PayloadType
@@ -550,10 +587,11 @@ def serve(cfg, params, requests, use_kernel: bool, bus=None):
     from repro_torch.serving.engine import PagedEngine
     from repro_torch.serving.server import (SERVE_ADMISSION_RULES,
                                             build_continuous_serving_agent)
-    agent = build_continuous_serving_agent(
-        cfg, max_batch=MAX_BATCH, num_pages=NUM_PAGES, page_size=PAGE_SIZE,
-        max_pages_per_seq=MAX_PAGES_PER_SEQ, use_kernel=use_kernel,
-        bus=bus, device="cuda")
+    if agent is None:
+        agent = build_continuous_serving_agent(
+            cfg, max_batch=MAX_BATCH, num_pages=NUM_PAGES,
+            page_size=PAGE_SIZE, max_pages_per_seq=MAX_PAGES_PER_SEQ,
+            use_kernel=use_kernel, bus=bus, device="cuda")
     env = agent.executor.env
     env.engine = PagedEngine(cfg, max_batch=env.max_batch,
                              num_pages=env.num_pages,
@@ -576,12 +614,14 @@ def serve(cfg, params, requests, use_kernel: bool, bus=None):
     torch.cuda.synchronize()
     paged_attention.launches = 0
     t0 = time.perf_counter()
-    agent.run_until_idle()
+    log = (run or (lambda a: a.run_until_idle()))(agent)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_attention.launches
     calls = dict(meter)
-    log = agent.external_client("smoke", "admin").read(0)
+    if log is None:
+        log = agent.external_client("smoke", "admin").read(
+            agent.bus.trim_base())
     admit_steps = [e.body["value"]["step"] for e in log
                    if e.type == PayloadType.RESULT
                    and e.body["value"].get("admitted")]
@@ -1461,6 +1501,10 @@ def main() -> None:
     # 4. slice 1: governed continuous serving at full qwen3_4b width
     paged = slice_qwen3(smi)
 
+    # 4b. slice 9: the agent kernel's spawns and the supervisor, on slice
+    # 1's parameters
+    spawned = slice_agent_kernel(smi, paged)
+
     # 5. slice 3: governed static serving at full qwen3_4b width, on slice
     # 1's parameters, which are freed after it
     flash = slice_qwen3_static(smi, paged.pop("cfg"), paged.pop("params"))
@@ -1494,13 +1538,17 @@ def main() -> None:
     # 12. result lines; each kernel's launches are those of its governed
     # kernel runs on the main paths
     launches = {
-        "paged_attention": paged["launches"] + new["paged_attention"],
+        "paged_attention": paged["launches"] + spawned["9a"]
+        + spawned["9b"] + new["paged_attention"],
         "ssd_intra": ssd["launches"] + last["ssd_intra"]
         + entry["ssd_intra"],
         "flash_attention": flash["launches"] + new["flash_attention"]
         + last["flash_attention"] + entry["flash_attention"]}
     print(f"[launches] paged_attention {launches['paged_attention']} = "
           f"{paged['launches']} (slice 1, qwen3_4b continuous) + "
+          f"{spawned['9a']} (slice 9a, a kernel-spawned qwen3_4b agent on "
+          f"SQLite) + {spawned['9b']} (slice 9b, two kernel-spawned "
+          f"qwen3_4b agents) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
           f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
           f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
@@ -1540,8 +1588,10 @@ def main() -> None:
 def slice_qwen3(smi):
     """Phase 4: governed continuous serving of full-width qwen3_4b.
     Returns the paged-attention launch count of the governed kernel run,
-    the kernel's timing at the main path's shape, and the config and
-    parameters (for slice 3)."""
+    the kernel's timing at the main path's shape, the config and
+    parameters (for slices 9 and 3), and for slice 9 the requests, the
+    memory run's tokens and each log's wall and governance ms a
+    serve_step intent."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config
@@ -1589,6 +1639,10 @@ def slice_qwen3(smi):
           f"{sum(r['secs'] for b, r in runs.items() if b != 'memory'):.2f} "
           f"s, the one on memory {run['secs']:.2f} s")
     launches = run["launches"]
+    gov_ms = {b: 1e3 * (r["wall"] - r["model_s"]) / r["n_intents"]
+              for b, r in runs.items()}
+    walls = {b: r["wall"] for b, r in runs.items()}
+    outputs = dict(pl.outputs)
     del runs, run
 
     ref = serve(cfg, params, requests, use_kernel=False)
@@ -1633,7 +1687,9 @@ def slice_qwen3(smi):
           f"on {smi}")
     t.pop("ctx")
     t.pop("blocks")
-    return {"launches": launches, "timing": t, "cfg": cfg, "params": params}
+    return {"launches": launches, "timing": t, "cfg": cfg, "params": params,
+            "requests": requests, "blocked": blocked, "outputs": outputs,
+            "gov_ms": gov_ms, "walls": walls}
 
 
 def _row(entry):
@@ -1684,9 +1740,7 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
         raise AssertionError("the veto left no Abort entry on the log")
     if len(set(run["admit_steps"])) < 2:
         raise AssertionError("admissions were not staggered over steps")
-    if run["launches"] != want_launches or want_launches == 0:
-        raise AssertionError("the decode steps did not all go through the "
-                             "kernel")
+    _check_launches(f"the kernel run on {backend}", run, cfg)
     for rid, toks in pl.outputs.items():
         if len(toks) != served[rid]["max_new_tokens"] or not all(
                 0 <= t < cfg.vocab for t in toks):
@@ -3260,9 +3314,10 @@ def _mem_available():
 
 
 def run_examples(smi):
-    """Phase 7c: the port's two examples on the card at smoke scale, each
-    with its own asserts (balance 135; the crash, recovery to step 48 and
-    a falling loss); the standby executor's reboot Result must be on the
+    """Phase 7c: the port's three examples on the card at smoke scale,
+    each with its own asserts (balance 135; the crash, recovery to step 48
+    and a falling loss; 12 requests served by a supervised fleet of three
+    static agents); the standby executor's reboot Result must be on the
     training example's log."""
     import torch
     from repro_torch.core import PayloadType
@@ -3276,19 +3331,22 @@ def run_examples(smi):
         with mock.patch.object(sys, "argv", [name] + argv), \
                 contextlib.redirect_stdout(out):
             spec.loader.exec_module(module)  # the quickstart runs here
-            if hasattr(module, "main"):
+            if hasattr(module, "build_training_agent"):
                 build = module.build_training_agent
 
                 def recorded(*args, **kw):
                     agents.append(build(*args, **kw))
                     return agents[-1]
                 module.build_training_agent = recorded
+            if hasattr(module, "main"):
                 module.main()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lines = out.getvalue().splitlines()
         print(f"  examples/{name}.py {' '.join(argv)}: {len(lines)} lines, "
               f"last {lines[-1]!r}; wall {wall:.2f} s | on {smi}")
+        if name == "swarm_serve_torch":
+            print("    " + "\n    ".join(lines[:-1]))
         if agents:
             reboots = [e.body["executor_id"] for e in agents[0].bus.read(0)
                        if e.type == PayloadType.RESULT
@@ -3520,6 +3578,268 @@ def slice_dryrun(smi):
         raise AssertionError(f"a kernel launched in slice 8: {launches}")
     print(f"  slice 8 wall {time.perf_counter() - t0:.2f} s | kernel "
           f"launches {launches} | on {smi}")
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the agent kernel, its serving-continuous image and the supervisor
+# ---------------------------------------------------------------------------
+
+def _same_outputs(label, got, want):
+    diff = sorted(r for r in set(got) | set(want)
+                  if got.get(r) != want.get(r))
+    if diff:
+        raise AssertionError(f"{label}: tokens differ from slice 1's for "
+                             f"{diff}")
+
+
+def _check_launches(label, run, cfg):
+    want = run["engine"].n_steps * cfg.n_layers
+    if run["launches"] != want or want == 0:
+        raise AssertionError(f"{label}: {run['launches']} paged launches, "
+                             f"want {run['engine'].n_steps} decode steps x "
+                             f"{cfg.n_layers} layers = {want}")
+
+
+def agent_kernel_trim(smi, paged, tmp):
+    """9a: one agent spawned by the kernel on SQLite, threaded, under a
+    TrimPolicy, with a reader thread following the tail; the host loop
+    calls ``maintain`` until the planner has every request. Returns the
+    paged launches."""
+    from repro_torch.core import (AgentKernel, SqliteBus, TrimmedError,
+                                  TrimPolicy, committed_unexecuted)
+    cfg, params = paged["cfg"], paged["params"]
+    requests = paged["requests"]
+    kernel = AgentKernel(workdir=tmp)
+    policy = TrimPolicy(checkpoint_every=TRIM_EVERY,
+                        retain_entries=TRIM_RETAIN, keep_snapshots=2)
+    h = kernel.create_bus("serve", mode="spawn", backend="sqlite",
+                          image="serving-continuous", image_kw=SPAWN_IMAGE_KW,
+                          trim_policy=policy)
+    seen, reader_errors, pauses = [], [], []
+    stop = threading.Event()
+
+    def reader():
+        cur = h.bus.trim_base()
+        while True:
+            last = stop.is_set()
+            try:
+                es = h.bus.read(cur)
+            except TrimmedError as exc:
+                reader_errors.append(exc)
+                cur = h.bus.trim_base()
+                continue
+            seen.extend(es)
+            cur = es[-1].position + 1 if es else cur
+            if last:
+                return
+            time.sleep(0.005)
+
+    def drive(agent):
+        planner = agent.driver.planner
+        rt = threading.Thread(target=reader, daemon=True)
+        rt.start()
+        try:
+            agent.start()
+            deadline = time.monotonic() + SLICE9_DEADLINE_S
+            while len(planner.outputs) + len(planner.rejected) \
+                    < len(requests):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"9a: the planner has {len(planner.outputs)} "
+                        f"outputs and {len(planner.rejected)} rejections "
+                        f"of {len(requests)} requests after "
+                        f"{SLICE9_DEADLINE_S} s")
+                t0 = time.perf_counter()
+                out = kernel.maintain("serve")
+                if out["maintained"]:
+                    pauses.append((time.perf_counter() - t0, out))
+                time.sleep(0.01)
+            if not agent.wait_idle(timeout=SLICE9_DEADLINE_S):
+                raise AssertionError("9a: the agent did not go idle")
+            t0 = time.perf_counter()
+            out = kernel.maintain("serve", force=True)
+            pauses.append((time.perf_counter() - t0, out))
+            if not agent.wait_idle(timeout=SLICE9_DEADLINE_S):
+                raise AssertionError("9a: the agent did not go idle after "
+                                     "the last maintain")
+            agent.stop()
+        finally:
+            stop.set()
+            rt.join(timeout=SLICE9_DEADLINE_S)
+        if rt.is_alive():
+            raise AssertionError("9a: the reader thread did not stop")
+        return seen
+
+    try:
+        run = serve(cfg, params, requests, use_kernel=True, agent=h.agent,
+                    run=drive)
+        pl = run["planner"]
+        _same_outputs("9a", pl.outputs, paged["outputs"])
+        if pl.rejected != paged["blocked"]:
+            raise AssertionError(f"9a: rejected {pl.rejected}, want "
+                                 f"{paged['blocked']}")
+        _check_launches("9a", run, cfg)
+        if run["launches"] != paged["launches"]:
+            raise AssertionError(f"9a: {run['launches']} paged launches, "
+                                 f"slice 1's runs {paged['launches']}")
+        if reader_errors:
+            raise AssertionError(f"9a: the reader fell behind a trim: "
+                                 f"{reader_errors}")
+        tail = h.bus.tail()
+        if [e.position for e in seen] != list(range(tail)):
+            raise AssertionError("9a: the reader did not see every entry "
+                                 "once, in order")
+        base = h.bus.trim_base()
+        if base <= 0 or not any(o["trim_base"] > 0 for _, o in pauses[:-1]):
+            raise AssertionError(f"9a: no maintain trimmed mid-run "
+                                 f"({[o['trim_base'] for _, o in pauses]})")
+        live = [_unsched(_row(e)) for e in h.bus.read(base)]
+        path = os.path.join(tmp, "buses", "serve.db")
+        fresh = SqliteBus(path)
+        try:
+            if fresh.trim_base() != base or [
+                    _unsched(_row(e)) for e in fresh.read(base)] != live:
+                raise AssertionError("9a: a fresh SqliteBus on the file "
+                                     "reads other entries from the trim "
+                                     "base than the live bus holds")
+            if committed_unexecuted(fresh):
+                raise AssertionError("9a: a committed-unexecuted intent is "
+                                     "left on the log")
+            for bus, who in ((h.bus, "the live bus"), (fresh, "a fresh "
+                                                       "SqliteBus")):
+                try:
+                    bus.read(0)
+                except TrimmedError:
+                    continue
+                raise AssertionError(f"9a, broken control: {who} read "
+                                     f"position 0 below trim base {base}")
+        finally:
+            fresh.close()
+    finally:
+        kernel.shutdown()
+    gov_s = run["wall"] - run["model_s"]
+    n_tokens = sum(len(t) for t in pl.outputs.values())
+    c = run["calls"]
+    print(f"  9a: AgentKernel spawn 'serving-continuous' on SQLite, "
+          f"threaded, TrimPolicy(checkpoint_every={TRIM_EVERY}, "
+          f"retain_entries={TRIM_RETAIN}, keep_snapshots=2), a reader "
+          f"thread on the tail: served {sorted(pl.outputs)} rejected "
+          f"{pl.rejected}, tokens equal to slice 1's, paged_attention "
+          f"launches {run['launches']} (slice 1's {paged['launches']}); "
+          f"{tail} entries, the reader saw all {len(seen)} in order with "
+          f"no TrimmedError; a fresh SqliteBus reads the {len(live)} "
+          f"entries from trim base {base} as the live bus does, no "
+          f"committed-unexecuted intent; broken control: read(0) raises "
+          f"TrimmedError on both | on {smi}")
+    print(f"  9a: {n_tokens} tokens in {run['wall']:.3f} s = "
+          f"{n_tokens / run['wall']:.2f} tokens/s end to end (the "
+          f"threads' start, the maintains and the stop included); inside "
+          f"PagedEngine.admit/step {run['model_s']:.3f} s; governance "
+          f"{gov_s:.3f} s = {1e3 * gov_s / run['n_intents']:.3f} ms a "
+          f"serve_step intent ({run['n_intents']} intents) beside slice "
+          f"1's synchronous SQLite run {paged['gov_ms']['sqlite']:.3f} ms "
+          f"(wall {paged['walls']['sqlite']:.3f} s) | on {smi}")
+    prev = 0
+    for i, (secs, out) in enumerate(pauses):
+        force = " (force)" if i == len(pauses) - 1 else ""
+        print(f"  9a: maintain {i + 1}{force} at tail {out['tail']}: paused "
+              f"the threads {secs:.4f} s, trim base {out['trim_base']} "
+              f"({out['trim_base'] - prev} entries trimmed), "
+              f"{out['compacted']} compacted, checkpoints "
+              f"{out['checkpoints']} | on {smi}")
+        prev = out["trim_base"]
+    print(f"  9a: calls into the SQLite log, summed over the agent's "
+          f"{len(h.components())} threads, the reader and the host "
+          f"loop: {c['appends']} appends ({c['entries']} entries), "
+          f"{c['reads']} reads, {c['tails']} tail probes, {c['waits']} "
+          f"waits; {c['bus_s']:.3f} thread-seconds inside the bus (the "
+          f"threads' idle waits included) | on {smi}")
+    return run["launches"]
+
+
+def agent_kernel_fleet(smi, paged):
+    """9b: two agents spawned by the kernel on memory buses, slice 1's
+    requests split 4 and 4, swept by a Supervisor. Returns the paged
+    launches."""
+    from repro_torch.core import (AgentKernel, MemorySnapshotStore,
+                                  PayloadType, Supervisor)
+    cfg, params = paged["cfg"], paged["params"]
+    requests = paged["requests"]
+    kernel = AgentKernel()
+    half = len(requests) // 2
+    parts = {"worker-0": requests[:half], "worker-1": requests[half:]}
+    runs = {}
+    try:
+        for name, part in parts.items():
+            h = kernel.create_bus(name, mode="spawn",
+                                  image="serving-continuous",
+                                  image_kw=SPAWN_IMAGE_KW)
+            runs[name] = serve(cfg, params, part, use_kernel=True,
+                               agent=h.agent)
+        sup = Supervisor({n: kernel.get(n).bus for n in parts})
+        view = sup.sweep()
+        store = MemorySnapshotStore()
+        positions = sup.checkpoint(store)
+        resumed = Supervisor({n: kernel.get(n).bus
+                              for n in parts}).bootstrap(store)
+    finally:
+        kernel.shutdown()
+    if resumed != positions:
+        raise AssertionError(f"9b: a second supervisor resumed at "
+                             f"{resumed}, the checkpoint is at {positions}")
+    outputs, rejected = {}, []
+    for name, run in runs.items():
+        pl = run["planner"]
+        outputs.update(pl.outputs)
+        rejected += pl.rejected
+        _check_launches(f"9b {name}", run, cfg)
+        steps = {e.body["intent_id"] for e in run["log"]
+                 if e.type == PayloadType.INTENT
+                 and e.body["kind"] == "serve_step"}
+        executed = sum(e.type == PayloadType.RESULT and e.body["ok"]
+                       and e.body["intent_id"] in steps for e in run["log"])
+        done = view["summaries"][name]["n_completed"]
+        if done != executed:
+            raise AssertionError(f"9b {name}: the supervisor counts {done} "
+                                 f"completed intents, the log {executed} "
+                                 f"executed serve_step intents")
+        health = view["health"][name]
+        print(f"  9b {name}: {[r['req_id'] for r in parts[name]]} served "
+              f"{sorted(pl.outputs)} rejected {pl.rejected}; paged "
+              f"launches {run['launches']} ({run['engine'].n_steps} steps "
+              f"x {cfg.n_layers}); wall {run['wall']:.3f} s, inside "
+              f"PagedEngine.admit/step {run['model_s']:.3f} s; supervisor: "
+              f"{done} completed = {executed} executed serve_step intents,"
+              f" health {health['verdict']} {health['reasons']} (a latency "
+              f"verdict, printed, not held) | on {smi}")
+    _same_outputs("9b", outputs, paged["outputs"])
+    if sorted(rejected) != sorted(paged["blocked"]):
+        raise AssertionError(f"9b: rejected {rejected}, want "
+                             f"{paged['blocked']}")
+    print(f"  9b: the fleet's tokens equal slice 1's for all "
+          f"{len(outputs)} requests; supervisor mail sent "
+          f"{view['mail_sent']}, checkpoint at {positions}, a second "
+          f"supervisor's bootstrap resumed at the same positions | on "
+          f"{smi}")
+    return sum(run["launches"] for run in runs.values())
+
+
+def slice_agent_kernel(smi, paged):
+    """Slice 9: the port's AgentKernel, its serving-continuous image and
+    the swarm Supervisor on slice 1's full-width qwen3_4b parameters.
+    Returns the paged launches of 9a and 9b."""
+    import torch
+    print(f"[slice 9] AgentKernel / serving-continuous / Supervisor at "
+          f"full qwen3_4b width on slice 1's parameters, on {smi}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-kernel-") as tmp:
+        trim = agent_kernel_trim(smi, paged, tmp)
+    torch.cuda.empty_cache()
+    fleet = agent_kernel_fleet(smi, paged)
+    torch.cuda.empty_cache()
+    print(f"  slice 9 wall {time.perf_counter() - t0:.2f} s; paged "
+          f"launches {trim} (9a) + {fleet} (9b) | on {smi}")
+    return {"9a": trim, "9b": fleet}
 
 
 def _leaves(tree):

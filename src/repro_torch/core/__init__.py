@@ -1,7 +1,13 @@
 """LogAct core, the port's copy: typed shared log (AgentBus) +
-deconstructed agent state machine (Driver / Voter / Decider / Executor).
+deconstructed agent state machine (Driver / Voter / Decider / Executor),
+the AgentBus control plane (``AgentKernel``) and the swarm ``Supervisor``.
 Pure Python; kept as a local copy so that ``repro_torch`` imports nothing
-of the JAX package."""
+of the JAX package.
+
+Of the reference's exports, four are still missing: ``NetBus`` and
+``PROTO_VERSION`` (the network log, ``core/netbus.py``) and
+``StandbyExecutor`` and ``ElasticWorkerPool`` (``core/failover.py``),
+whose modules are not ported yet."""
 from . import entries
 from .acl import AclError, BusClient, Permissions, ROLES
 from .agent import LogActAgent
@@ -13,10 +19,13 @@ from .entries import Entry, Payload, PayloadType
 from .executor import Executor
 from .introspect import (BusObserver, TRACE_TYPES, health_check,
                          summarize_bus, trace_intents)
+from .kernel import (AgentKernel, AGENT_IMAGES, TrimPolicy, VOTER_LIBRARY,
+                     register_image)
 from .lifecycle import CheckpointCoordinator, Recoverable
 from .policy import DeciderPolicy, PolicyState
 from .recovery import RecoveryPlanner, committed_unexecuted
 from .snapshot import DirSnapshotStore, MemorySnapshotStore, SnapshotStore
+from .supervisor import Supervisor
 from .voter import (RuleVoter, StatVoter, Voter, VoteDecision,
                     STANDARD_RULES)
 
@@ -26,9 +35,11 @@ __all__ = [
     "TrimmedError", "make_bus",
     "Decider", "Driver", "Planner", "ScriptPlanner", "Entry", "Payload",
     "PayloadType", "Executor", "health_check", "summarize_bus",
-    "trace_intents", "BusObserver", "TRACE_TYPES", "CheckpointCoordinator",
-    "Recoverable", "DeciderPolicy", "PolicyState", "RecoveryPlanner",
-    "committed_unexecuted", "DirSnapshotStore",
-    "MemorySnapshotStore", "SnapshotStore", "RuleVoter", "StatVoter",
-    "Voter", "VoteDecision", "STANDARD_RULES",
+    "trace_intents", "BusObserver", "TRACE_TYPES",
+    "AgentKernel", "AGENT_IMAGES", "TrimPolicy", "VOTER_LIBRARY",
+    "register_image", "CheckpointCoordinator", "Recoverable",
+    "DeciderPolicy", "PolicyState", "RecoveryPlanner",
+    "committed_unexecuted", "DirSnapshotStore", "MemorySnapshotStore",
+    "SnapshotStore", "Supervisor", "RuleVoter", "StatVoter", "Voter",
+    "VoteDecision", "STANDARD_RULES",
 ]

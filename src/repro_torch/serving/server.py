@@ -28,7 +28,10 @@ module, as in the reference:
   is re-proposed solo once and then dropped as rejected.
 
 The planners and the rules are pure Python, carried over unchanged from
-the reference. The kernel spawn image is not ported yet.
+the reference. The continuous agent is also the ``AgentKernel`` spawn
+image ``serving-continuous`` (``core/kernel.py``): the image takes the
+reference's arguments, with ``device`` passed on through ``**kw``, so a
+spawned agent runs on the card unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.agent import LogActAgent
 from ..core.driver import Planner
+from ..core.kernel import register_image
 from ..core.voter import VoteDecision
 from ..device import resolve_device
 from ..models.model import Model
@@ -439,3 +443,18 @@ def build_continuous_serving_agent(cfg: ArchConfig, *, bus=None, voters=(),
     return LogActAgent(bus=bus, planner=planner, env=env,
                        handlers=SERVE_HANDLERS, voters=list(voters),
                        snapshot_store=snapshot_store, agent_id=agent_id)
+
+
+@register_image("serving-continuous")
+def _image_serving_continuous(bus=None, snapshot_store=None,
+                              arch: str = "qwen3_4b", smoke_cfg: bool = True,
+                              **kw) -> LogActAgent:
+    """AgentKernel spawn image: a continuous-batching serving agent on the
+    kernel's bus (the smoke config by default; ``device`` rides in
+    ``kw``, the card unless told otherwise)."""
+    from ..configs.base import get_config, smoke
+    cfg = get_config(arch)
+    if smoke_cfg:
+        cfg = smoke(cfg)
+    return build_continuous_serving_agent(
+        cfg, bus=bus, snapshot_store=snapshot_store, **kw)

@@ -22,17 +22,17 @@ the governed serving agent and the executor-crash drill on durable logs
 against the JAX side; and a broken control (a port bus whose ``read``
 drops the last entry) that the comparison must catch.
 
+The harness (``REF``/``PORT``, ``Record``, ``_clock``, ``_run``,
+``_both``) is shared with ``test_torch_agent_kernel.py`` and lives in
+``tests/_torch_core_parity.py``.
+
 No hypothesis: every input is fixed.
 """
-import contextlib
-import importlib
-import itertools
 import json
 import os
 import sqlite3
 import threading
 import time
-from types import SimpleNamespace
 
 import pytest
 
@@ -43,6 +43,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 import _torch_trainer_parity as parity  # noqa: E402
+from _torch_core_parity import (PORT, REF, Record, _both,  # noqa: E402
+                                _clock, _obs, _run)
 from repro.configs.base import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import smoke as jax_smoke  # noqa: E402
 from repro.models.model import Model as JaxModel  # noqa: E402
@@ -55,70 +57,6 @@ from repro_torch.serving import server  # noqa: E402
 from repro_torch.serving.engine import PagedEngine  # noqa: E402
 
 torch.set_num_threads(1)
-
-
-def _package(name):
-    mods = {m: importlib.import_module(f"{name}.core.{m}")
-            for m in ("acl", "bus", "codec", "entries", "faults", "recovery",
-                      "voter")}
-    return SimpleNamespace(name=name, **mods)
-
-
-REF, PORT = _package("repro"), _package("repro_torch")
-
-
-# ---------------------------------------------------------------------------
-# the harness: records, a deterministic clock, buses by backend
-# ---------------------------------------------------------------------------
-
-def _obs(x):
-    """What a record keeps of a value: entries as (position, type, body,
-    ts); containers element by element."""
-    if hasattr(x, "realtime_ts") and hasattr(x, "payload"):
-        return (x.position, x.type.value, x.body, x.realtime_ts)
-    if isinstance(x, (list, tuple)):
-        return [_obs(v) for v in x]
-    if isinstance(x, dict):
-        return {k: _obs(v) for k, v in x.items()}
-    return x
-
-
-class Record(list):
-    """(label, observation) pairs, in the order a scenario made them."""
-
-    def see(self, label, value):
-        self.append((label, _obs(value)))
-        return value
-
-    def do(self, label, fn, *args, **kw):
-        """Call ``fn``: record its result, or the error it raised (type,
-        and a TrimmedError's requested position and base)."""
-        try:
-            out = fn(*args, **kw)
-        except Exception as exc:  # the record holds what was raised
-            self.append((label, ("raised", type(exc).__name__,
-                                 getattr(exc, "requested", None),
-                                 getattr(exc, "base", None))))
-            return None
-        return self.see(label, out)
-
-    def get(self, label):
-        return dict(self)[label]
-
-
-@contextlib.contextmanager
-def _clock(pkg):
-    """Entry timestamps from a counter for the duration of a scenario (or
-    of a part of one: the counter restarts, and the outer one is put
-    back afterwards)."""
-    real, tick = pkg.bus.time, itertools.count()
-    pkg.bus.time = SimpleNamespace(
-        time=lambda: 1.7e9 + 0.25 * next(tick), monotonic=time.monotonic,
-        sleep=time.sleep)
-    try:
-        yield
-    finally:
-        pkg.bus.time = real
 
 
 def _path(root, backend, name="log"):
@@ -135,23 +73,6 @@ def _bus_at(pkg, backend, path, **kw):
 
 def _new(pkg, backend, root, name="log", **kw):
     return _bus_at(pkg, backend, _path(root, backend, name), **kw)
-
-
-def _run(scenario, pkg, root, *args):
-    os.makedirs(root, exist_ok=True)
-    rec = Record()
-    with _clock(pkg):
-        scenario(pkg, rec, str(root), *args)
-    return rec
-
-
-def _both(scenario, tmp_path, *args):
-    """The reference's record and the port's, each in a directory of its
-    own."""
-    want = _run(scenario, REF, tmp_path / "ref", *args)
-    got = _run(scenario, PORT, tmp_path / "port", *args)
-    assert len(want) > 0
-    return want, got
 
 
 def _mix(E, i):

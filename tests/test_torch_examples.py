@@ -1,8 +1,15 @@
 """The port's copies of the examples (``examples/quickstart_torch.py``,
-``examples/fault_tolerant_train_torch.py``) against the reference's, on
-the CPU.
+``examples/fault_tolerant_train_torch.py``,
+``examples/swarm_serve_torch.py``) against the reference's, on the CPU.
 
 The quickstart (pure governance) prints the same lines in both packages.
+The swarm example (three static serving agents on smoke mixtral_8x7b,
+swept by a ``Supervisor``) prints the same lines when both sides' agents
+hold one numpy tree of parameters (each example module's
+``build_serving_agent`` wrapped), apart from each agent's ``health=``
+verdict: that is a latency verdict (``health_check`` compares intent
+latencies on the wall clock, and the reference's first batch includes
+its jit compilation), so it is masked on both sides.
 The fault-tolerant run (smoke qwen3_4b, 48 steps, the executor killed at
 step 27, a standby executor's reboot Result, probe and roll forward)
 starts both sides from one numpy tree, the reference's initial
@@ -11,8 +18,9 @@ through ``params_from_numpy``), and holds equal the pending intent after
 the crash (its sequence number: the Driver's id is random), the crash
 step, the final step, the checkpoints, the log's entries and its
 commit/abort counts; every step's loss and the evals to ``LOSS_RTOL``
-(rtol 1e-4, the trainer tests'). The training example, like the
-launchers, raises without CUDA unless ``--device cpu`` is given.
+(rtol 1e-4, the trainer tests'). The training and the swarm
+examples, like the launchers, raise without CUDA unless ``--device cpu``
+is given.
 """
 import importlib.util
 import re
@@ -128,4 +136,40 @@ def test_without_cuda_the_training_example_raises(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["fault_tolerant_train_torch",
                                       "--steps", "8"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        module.main()
+
+
+def _swarm(monkeypatch, capsys, name, params, argv):
+    """The swarm example's ``main`` with every serving agent it builds
+    holding ``params``; the printed lines, the health verdicts masked."""
+    module = _load(name)
+    build = module.build_serving_agent
+
+    def with_params(*args, **kw):
+        agent = build(*args, **kw)
+        agent.executor.env.params = params
+        return agent
+    monkeypatch.setattr(module, "build_serving_agent", with_params)
+    monkeypatch.setattr(sys, "argv", [name] + argv)
+    capsys.readouterr()
+    module.main()
+    return re.sub(r"health=\S+", "health=*",
+                  capsys.readouterr().out).splitlines()
+
+
+def test_swarm_serve_prints_what_the_reference_prints(monkeypatch, capsys):
+    _, _, jparams, tparams = parity.setup("mixtral_8x7b", vocab=256)
+    want = _swarm(monkeypatch, capsys, "swarm_serve", jparams, [])
+    got = _swarm(monkeypatch, capsys, "swarm_serve_torch", tparams,
+                 ["--device", "cpu"])
+    assert got == want
+    assert want[-2:] == ["served 12 requests across 3 agents", "OK"]
+    assert len(want) == 6 and all("health=*" in line for line in want[1:4])
+
+
+def test_without_cuda_the_swarm_example_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    module = _load("swarm_serve_torch")
+    monkeypatch.setattr(sys, "argv", ["swarm_serve_torch"])
+    with pytest.raises(RuntimeError, match="CUDA"):
         module.main()

@@ -1,8 +1,8 @@
 """``repro_torch``, ``chip_smoke.py``, ``tools/kernel_ab.py`` and the
 port's examples stand alone: no import of ``jax`` or of the reference
 package ``repro``, by an AST scan of every module and by importing the
-serving and the training modules and the launchers in a fresh
-interpreter."""
+serving and the training modules, the launchers and the core package
+(the agent kernel and the supervisor among it) in a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -18,7 +18,8 @@ PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
 PORT_FILES = PACKAGE_FILES + [
     ROOT / "tools" / "kernel_ab.py", ROOT / "chip_smoke.py",
     ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "fault_tolerant_train_torch.py"]
+    ROOT / "examples" / "fault_tolerant_train_torch.py",
+    ROOT / "examples" / "swarm_serve_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -47,7 +48,8 @@ def test_port_modules_exist():
             "repro_torch/train/train_step.py",
             "repro_torch/train/checkpoint.py",
             "repro_torch/train/trainer.py", "repro_torch/core/introspect.py",
-            "repro_torch/core/recovery.py", "repro_torch/models/moe.py",
+            "repro_torch/core/recovery.py", "repro_torch/core/kernel.py",
+            "repro_torch/core/supervisor.py", "repro_torch/models/moe.py",
             "repro_torch/configs/gemma2_9b.py",
             "repro_torch/configs/chatglm3_6b.py",
             "repro_torch/configs/codeqwen15_7b.py",
@@ -95,3 +97,9 @@ def test_launch_import_pulls_in_neither():
     _import_pulls_in_neither("repro_torch.launch.serve")
     _import_pulls_in_neither("repro_torch.launch.train")
     _import_pulls_in_neither("repro_torch.launch.dryrun")
+
+
+def test_core_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.core")
+    _import_pulls_in_neither("repro_torch.core.kernel")
+    _import_pulls_in_neither("repro_torch.core.supervisor")

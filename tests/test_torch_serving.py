@@ -117,9 +117,12 @@ def test_engine_capacity_backpressure_parity(setup):
 # governed serving: port agent vs reference agent
 # ---------------------------------------------------------------------------
 
-def _governed(setup, policy, mails):
+def _governed(setup, policy, mails, spawn=None):
     """Run the reference's and the port's governed agents side by side;
-    returns (planner, entry-type list) per side."""
+    returns (planner, entry-type list) per side. ``spawn(side, kw)``,
+    where given, builds each side's agent (through an ``AgentKernel``,
+    say) in place of ``build_continuous_serving_agent(cfg, **kw)``; the
+    engine on the carried-over parameters is set on it all the same."""
     jcfg, tcfg, jparams, tparams = setup
     out = []
     for side in ("jax", "torch"):
@@ -127,14 +130,18 @@ def _governed(setup, policy, mails):
             (jax_server, JaxRuleVoter, JaxBusClient) if side == "jax"
             else (server, RuleVoter, BusClient))
         kw = dict(max_batch=4, num_pages=64, page_size=8, max_new_tokens=4)
-        if side == "jax":
+        if spawn is not None:
+            agent = spawn(side, kw)
+        elif side == "jax":
             agent = srv.build_continuous_serving_agent(jcfg, **kw)
+        else:
+            agent = srv.build_continuous_serving_agent(tcfg, device="cpu",
+                                                       **kw)
+        if side == "jax":
             agent.executor.env.engine = JaxEngine(jcfg, params=jparams,
                                                   max_batch=4, num_pages=64,
                                                   page_size=8)
         else:
-            agent = srv.build_continuous_serving_agent(tcfg, device="cpu",
-                                                       **kw)
             agent.executor.env.engine = PagedEngine(
                 tcfg, params=tparams, max_batch=4, num_pages=64,
                 page_size=8, device="cpu")
