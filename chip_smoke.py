@@ -52,6 +52,17 @@ code is not 0 and no result line is printed:
    second supervisor's ``bootstrap`` must resume at the checkpoint. Wall,
    engine and governance times, each maintain's pause and the entries
    trimmed and compacted are printed.
+4c. slice 10 — automatic failover (``core/failover.py``). 10b, here, on
+   slice 1's parameters: an ``ElasticWorkerPool`` over the
+   ``serving-continuous`` image scales to two workers, which serve slice
+   1's requests 4 and 4; worker 1's executor gets, in a copy of its
+   handler dict, a ``serve_step`` that raises. The sweep must replace
+   worker 1 as failing, the replacement serves worker 1's requests, the
+   tokens must equal slice 1's with the denylisted request rejected, each
+   healthy run's paged launches must equal its decode steps x 36, and
+   every launch is held to its plain version on its own inputs. Wall,
+   engine and governance times per worker and the sweep's time are
+   printed. 10a runs inside slice 4's crash drill (phase 7).
 5. slice 3 — the governed static-batching serving path at the full width
    of ``qwen3_4b``, on slice 1's parameters: the 8 requests of slice 2 in
    two ``serve_batch`` intents, each dense prefill running the
@@ -88,9 +99,16 @@ code is not 0 and no result line is printed:
    ``STANDARD_RULES``, with a checkpoint at step 4 and a final eval;
    step 4 is restored and steps 5-8 replayed (they must give the first
    run's losses; from cursor 5, the broken control, they must not);
-   then the executor-crash drill on the same env, its log in SQLite, where
-   a second ``SqliteBus`` on the file must see the agent's one pending
-   ``train_chunk``; then one full-width
+   a ``StandbyExecutor`` on the governed run's healthy log must stay
+   passive (10a); then the executor-crash drill on the same env, its log
+   in SQLite, where a second ``SqliteBus`` on the file must see the
+   agent's one pending ``train_chunk``, and (10a) a ``StandbyExecutor``
+   reading the file through its own ``SqliteBus`` on the real clock must
+   stay passive until the chunk is older than its timeout, then take over
+   through an announced reboot and roll the agent forward to step 8 with
+   one probe (the seconds from the crash to the takeover, the cost of a
+   ``check()`` on the file and the roll-forward's wall are printed); then
+   one full-width
    ``mamba2_780m`` step (two SSD chunks of 256) must give a finite grad
    norm, and the reference's ``where(exp)`` order a NaN one. Step time,
    tokens/s, peak memory and checkpoint I/O are printed; the checkpoint
@@ -282,6 +300,10 @@ SERVE_BUSES = ("memory", "sqlite", "kv")
 # thread room), and the deadline of each of slice 9's waits
 TRIM_EVERY, TRIM_RETAIN = 120, 32
 SLICE9_DEADLINE_S = 300.0
+# slice 10a: the standby's takeover timeout in slice 4's crash drill, on
+# the real clock (the pending chunk's intent is two training steps, ~2 s,
+# old at the crash)
+TAKEOVER_TIMEOUT_S = 6.0
 # slice 9's spawns: the full-width qwen3_4b on the card, with slice 1's
 # engine sizes
 SPAWN_IMAGE_KW = {"arch": "qwen3_4b", "smoke_cfg": False, "device": "cuda",
@@ -1505,6 +1527,10 @@ def main() -> None:
     # 1's parameters
     spawned = slice_agent_kernel(smi, paged)
 
+    # 4c. slice 10b: the elastic pool replaces a failing serving worker,
+    # on slice 1's parameters (10a runs inside slice 4's crash drill)
+    pooled = slice_elastic_pool(smi, paged)
+
     # 5. slice 3: governed static serving at full qwen3_4b width, on slice
     # 1's parameters, which are freed after it
     flash = slice_qwen3_static(smi, paged.pop("cfg"), paged.pop("params"))
@@ -1539,7 +1565,7 @@ def main() -> None:
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + spawned["9a"]
-        + spawned["9b"] + new["paged_attention"],
+        + spawned["9b"] + pooled + new["paged_attention"],
         "ssd_intra": ssd["launches"] + last["ssd_intra"]
         + entry["ssd_intra"],
         "flash_attention": flash["launches"] + new["flash_attention"]
@@ -1548,7 +1574,8 @@ def main() -> None:
           f"{paged['launches']} (slice 1, qwen3_4b continuous) + "
           f"{spawned['9a']} (slice 9a, a kernel-spawned qwen3_4b agent on "
           f"SQLite) + {spawned['9b']} (slice 9b, two kernel-spawned "
-          f"qwen3_4b agents) + "
+          f"qwen3_4b agents) + {pooled} (slice 10b, the elastic pool's "
+          f"healthy qwen3_4b worker and the failing one's replacement) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
           f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
           f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
@@ -1987,19 +2014,16 @@ def _governed_agent(env):
 def train_governed(smi, root):
     """Full-width qwen3_4b (fp32, Adafactor, remat full): the governed run
     to step 8 with a checkpoint at step 4 and a final eval; restore step 4
-    and replay steps 5-8 (and the broken control from cursor 5); then the
-    executor-crash drill on the same env."""
+    and replay steps 5-8 (and the broken control from cursor 5); a
+    standby on the healthy log (10a); then the executor-crash drill on
+    the same env, with 10a's standby takeover."""
     import torch
     from repro_torch.configs.base import get_config
-    from repro_torch.core import (Executor, SqliteBus, committed_unexecuted,
-                                  summarize_bus, trace_intents)
-    from repro_torch.core.acl import BusClient
+    from repro_torch.core import summarize_bus, trace_intents
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.optim.optimizer import OptimizerConfig
     from repro_torch.train.train_step import StepConfig
-    from repro_torch.train.trainer import (TRAIN_HANDLERS, InjectedCrash,
-                                           build_env, build_training_agent,
-                                           h_restore_checkpoint,
+    from repro_torch.train.trainer import (build_env, h_restore_checkpoint,
                                            h_train_chunk)
     cfg = get_config("qwen3_4b")
     opt = OptimizerConfig(name="adafactor", lr=1e-3, warmup_steps=2,
@@ -2046,6 +2070,7 @@ def train_governed(smi, root):
             or not all(map(math.isfinite, losses + gns + evals)):
         raise AssertionError("the governed training run did not reach its "
                              "target cleanly")
+    _standby_passive(smi, bus, env, "the governed run's healthy log")
     step_s = log["step"][1:TRAIN_STEPS]
     step_ms = 1e3 * sum(step_s) / len(step_s)
     print(f"    step time {step_ms:.2f} ms (mean of steps 2-{TRAIN_STEPS}; "
@@ -2095,10 +2120,46 @@ def train_governed(smi, root):
     _profile(f"one training step ({TRAIN_DATA['global_batch']}, "
              f"{TRAIN_DATA['seq_len']})", [one_step], 1)
 
-    # the crash drill of tests/test_recovery.py on the same env: fresh
-    # weights, no voter, the agent's log in SQLite in the slice's root; a
-    # second SqliteBus on the same file, as a standby process would open
-    # it, must see the same pending train_chunk as the agent's bus
+    crash_drill(smi, env, root, losses[:ck])
+
+
+def _standby_passive(smi, bus, env, label):
+    """10a's check that a standby on a healthy log stays passive: on the
+    real clock, and on a clock 1000 s ahead (no intent is left without a
+    Result, however old)."""
+    from repro_torch.core import StandbyExecutor
+    from repro_torch.train.trainer import TRAIN_HANDLERS
+    verdicts = []
+    for clock in (time.time, lambda: time.time() + 1000.0):
+        standby = StandbyExecutor(bus, env, TRAIN_HANDLERS,
+                                  takeover_timeout=TAKEOVER_TIMEOUT_S,
+                                  clock=clock)
+        verdicts.append((standby.maybe_take_over(), standby.active,
+                         standby.takeover_reason))
+    print(f"    10a: a StandbyExecutor on {label} ({bus.tail()} entries): "
+          f"maybe_take_over {[v[0] for v in verdicts]} on the real clock "
+          f"and 1000 s ahead; reasons {[v[2] for v in verdicts]} | on {smi}")
+    if any(v != (False, None, None) for v in verdicts):
+        raise AssertionError(f"10a: a standby took over {label}: "
+                             f"{verdicts}")
+
+
+def crash_drill(smi, env, root, first_losses):
+    """The crash drill of tests/test_recovery.py on slice 4's env: fresh
+    weights, no voter, the agent's log in SQLite in the slice's root; a
+    second SqliteBus on the same file, as a standby process would open
+    it, must see the same pending train_chunk as the agent's bus. Then
+    10a: a StandbyExecutor watching its own SqliteBus on the file, on the
+    real clock, must stay passive until the pending chunk is older than
+    TAKEOVER_TIMEOUT_S, then take over (a fenced, announced reboot), and
+    the agent, with the standby as its executor, must roll forward to
+    step 8 with one probe. ``first_losses`` are the governed run's first
+    chunk's losses, which the drill's first chunk repeats."""
+    import torch
+    from repro_torch.core import (SqliteBus, StandbyExecutor,
+                                  committed_unexecuted, trace_intents)
+    from repro_torch.train.trainer import (TRAIN_HANDLERS, InjectedCrash,
+                                           build_training_agent)
     env.state, env.step, env.data_cursor = None, 0, 0
     torch.cuda.empty_cache()
     db = os.path.join(root, "drill.db")
@@ -2112,11 +2173,12 @@ def train_governed(smi, root):
         agent.run_until_idle(max_rounds=100000)
         raise AssertionError("the injected crash did not happen")
     except InjectedCrash:
-        pass
+        t_crash = time.monotonic()
+        crash_wall = time.time()
     pend = committed_unexecuted(bus)
-    standby = SqliteBus(db)
-    seen = committed_unexecuted(standby)
-    standby.close()
+    second = SqliteBus(db)
+    seen = committed_unexecuted(second)
+    second.close()
     print(f"    crash drill on a SqliteBus: pending {pend}; a second "
           f"SqliteBus on the file sees {seen}")
     if [p["kind"] for p in pend] != ["train_chunk"] or env.step != 6:
@@ -2125,23 +2187,77 @@ def train_governed(smi, root):
     if seen != pend:
         raise AssertionError("a second reader of the SQLite log sees "
                              "another pending set than the agent's bus")
-    agent.executor = Executor(BusClient(bus, "executor-2", "executor"),
-                              env=env, handlers=TRAIN_HANDLERS,
-                              announce_reboot=True)
+    iid = pend[0]["intent_id"]
+    pending_ts = next(t.intent_ts for t in trace_intents(bus.read(0))
+                      if t.intent_id == iid)
+
+    # 10a: the standby reads the file through its own SqliteBus
+    watch = SqliteBus(db)
+    standby = StandbyExecutor(watch, env, TRAIN_HANDLERS,
+                              takeover_timeout=TAKEOVER_TIMEOUT_S)
+    t0 = time.perf_counter()
+    first = standby.check()
+    first_s = time.perf_counter() - t0
+    n_entries = watch.tail()
+    if first is not None:
+        raise AssertionError(f"10a, timing control: the standby's first "
+                             f"check, {crash_wall - pending_ts:.3f} s after "
+                             f"the chunk's intent, gave {first!r} inside "
+                             f"its {TAKEOVER_TIMEOUT_S} s timeout")
+    polls = []
+    while True:
+        t0 = time.perf_counter()
+        took = standby.maybe_take_over()
+        polls.append(time.perf_counter() - t0)
+        if took:
+            break
+        if time.monotonic() - t_crash > TAKEOVER_TIMEOUT_S + 60:
+            raise AssertionError("10a: the standby did not take over within "
+                                 "60 s of its timeout")
+        time.sleep(0.05)
+    takeover_s = time.monotonic() - t_crash
+    reason = standby.takeover_reason
+    poll_ms = 1e3 * sum(polls[:-1]) / max(1, len(polls) - 1)
+    print(f"    10a: StandbyExecutor(takeover_timeout="
+          f"{TAKEOVER_TIMEOUT_S} s, real clock) on its own SqliteBus on "
+          f"the file: the pending chunk's intent was "
+          f"{crash_wall - pending_ts:.3f} s old at the crash; first check "
+          f"None (the timing control) in {1e3 * first_s:.3f} ms over the "
+          f"{n_entries} entries of the log; {len(polls)} polls of "
+          f"maybe_take_over, {poll_ms:.3f} ms each while passive "
+          f"(incremental); took over "
+          f"{takeover_s:.3f} s after the crash: {reason!r} | on {smi}")
+    if "no result" not in reason or iid not in reason:
+        raise AssertionError(f"10a: the takeover reason {reason!r} does not "
+                             f"name the pending train_chunk {iid}")
+    agent.executor = standby
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     agent.run_until_idle(max_rounds=100000)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
     trace = trace_intents(bus.read(0))
     probes = [t.decision for t in trace if t.kind == "probe_state"]
     starts = [t.args["data_start"] for t in trace
               if t.kind == "train_chunk" and t.result and t.result["ok"]]
     drill = [x for t in trace if t.kind == "train_chunk" and t.result
              and t.result["ok"] for x in t.result["value"]["losses"]]
+    reboots = [e.body["executor_id"] for e in bus.read(0)
+               if e.type.value == "Result" and e.body.get("recovered")]
     print(f"    crash drill: intents {[t.kind for t in trace]}; probes "
-          f"{probes}; data starts {starts}; env.step {env.step}; first "
-          f"chunk's losses equal the governed run's: "
-          f"{drill[:ck] == losses[:ck]}")
+          f"{probes}; data starts {starts}; env.step {env.step}; reboot "
+          f"Results from {reboots}; first chunk's losses equal the "
+          f"governed run's: {drill[:len(first_losses)] == first_losses}; "
+          f"10a's roll-forward (probe, the rest of the chunk, eval) "
+          f"{roll_s:.3f} s, the agent's SqliteBus reading the standby's "
+          f"Results | on {smi}")
     if probes != ["commit"] or env.step != TRAIN_STEPS \
             or any(b <= a for a, b in zip(starts, starts[1:])):
         raise AssertionError("the crash drill did not roll forward once")
+    if reboots != [standby.standby_id]:
+        raise AssertionError(f"10a: reboot Results from {reboots}, want "
+                             f"one from {standby.standby_id}")
+    watch.close()
     bus.close()
 
 
@@ -3840,6 +3956,113 @@ def slice_agent_kernel(smi, paged):
     print(f"  slice 9 wall {time.perf_counter() - t0:.2f} s; paged "
           f"launches {trim} (9a) + {fleet} (9b) | on {smi}")
     return {"9a": trim, "9b": fleet}
+
+
+# ---------------------------------------------------------------------------
+# slice 10: automatic failover (10a runs inside slice 4's crash drill)
+# ---------------------------------------------------------------------------
+
+def _bad_node(args, env):
+    raise RuntimeError("bad node")
+
+
+def slice_elastic_pool(smi, paged):
+    """10b: an ElasticWorkerPool over the ``serving-continuous`` image at
+    full qwen3_4b width on slice 1's parameters. Two workers, slice 1's
+    requests split 4 and 4, each run through ``serve``; worker 1's
+    executor gets, in a copy of its handler dict, a ``serve_step`` that
+    raises. The sweep must replace worker 1 as failing, and the
+    replacement serves worker 1's requests. Every paged launch is held to
+    its plain version on its own inputs. Returns the paged launches."""
+    from repro_torch.core import AgentKernel, ElasticWorkerPool
+    from repro_torch.serving import engine as engine_lib
+    cfg, params = paged["cfg"], paged["params"]
+    requests = paged["requests"]
+    print(f"[slice 10] 10b: ElasticWorkerPool over 'serving-continuous' at "
+          f"full {cfg.arch_id} width on slice 1's parameters, on {smi}")
+    t_slice = time.perf_counter()
+    half = len(requests) // 2
+    parts = [requests[:half], requests[half:]]
+    kernel = AgentKernel()
+    pool = ElasticWorkerPool(kernel, "serving-continuous",
+                             image_kw_fn=lambda i: dict(SPAWN_IMAGE_KW))
+    checks, runs = [], {}
+    kernel_fn = engine_lib.paged_attention
+    engine_lib.paged_attention = _paged_checker(checks)
+    try:
+        pool.scale_to(2)
+        names = kernel.list_buses()
+        if names != ["worker-0-0", "worker-0-1"]:
+            raise AssertionError(f"10b: scale_to(2) gave {names}")
+        failing = kernel.get("worker-0-1").agent.executor
+        failing.handlers = dict(failing.handlers, serve_step=_bad_node)
+        if kernel.get("worker-0-0").agent.executor.handlers["serve_step"] \
+                is _bad_node:
+            raise AssertionError("10b: the healthy worker shares the "
+                                 "failing worker's handlers")
+        for name, part in zip(names, parts):
+            runs[name] = serve(cfg, params, part, use_kernel=True,
+                               agent=kernel.get(name).agent)
+        t0 = time.perf_counter()
+        actions = pool.sweep()
+        sweep_s = time.perf_counter() - t0
+        repl = pool.replaced.get("worker-0-1")
+        print(f"  10b: sweep {actions} in {1e3 * sweep_s:.3f} ms; "
+              f"generation {pool.generation}; buses {kernel.list_buses()} "
+              f"| on {smi}")
+        if repl is None or actions["worker-0-1"] != \
+                f"replaced_by:{repl} (failing)":
+            raise AssertionError(f"10b: the sweep did not replace the "
+                                 f"failing worker: {actions}")
+        runs[repl] = serve(cfg, params, parts[1], use_kernel=True,
+                           agent=kernel.get(repl).agent)
+    finally:
+        engine_lib.paged_attention = kernel_fn
+        kernel.shutdown()
+    outputs, rejected, launches = {}, [], 0
+    for (name, run), part in zip(runs.items(), parts + [parts[1]]):
+        pl = run["planner"]
+        if name == "worker-0-1":
+            if pl.outputs or sorted(pl.rejected) != sorted(
+                    r["req_id"] for r in part) or run["launches"]:
+                raise AssertionError(
+                    f"10b: the failing worker served {sorted(pl.outputs)}, "
+                    f"rejected {pl.rejected}, launched {run['launches']}")
+            fails = sum(e.type.value == "Result" and not e.body["ok"]
+                        for e in run["log"])
+            print(f"  10b {name} (serve_step raises): "
+                  f"{[r['req_id'] for r in part]} served none, rejected "
+                  f"{pl.rejected}; {fails} failed Results, 0 paged "
+                  f"launches; wall {run['wall']:.3f} s | on {smi}")
+            continue
+        outputs.update(pl.outputs)
+        rejected += pl.rejected
+        _check_launches(f"10b {name}", run, cfg)
+        launches += run["launches"]
+        gov_s = run["wall"] - run["model_s"]
+        verdict = actions.get(name, "not swept (the replacement)")
+        print(f"  10b {name}: {[r['req_id'] for r in part]} served "
+              f"{sorted(pl.outputs)} rejected {pl.rejected}; paged "
+              f"launches {run['launches']} ({run['engine'].n_steps} steps "
+              f"x {cfg.n_layers}); wall {run['wall']:.3f} s, inside "
+              f"PagedEngine.admit/step {run['model_s']:.3f} s, governance "
+              f"{gov_s:.3f} s = {1e3 * gov_s / run['n_intents']:.3f} ms a "
+              f"serve_step intent ({run['n_intents']} intents); sweep "
+              f"verdict {verdict} (a latency verdict, printed, not held) | "
+              f"on {smi}")
+    _same_outputs("10b", outputs, paged["outputs"])
+    if sorted(rejected) != sorted(paged["blocked"]):
+        raise AssertionError(f"10b: rejected {rejected}, want "
+                             f"{paged['blocked']}")
+    if len(checks) != launches:
+        raise AssertionError(f"10b: {len(checks)} launches held, "
+                             f"{launches} counted")
+    _hold_launches("10b paged_attention", checks,
+                   "plain with the kv heads rolled")
+    print(f"  10b: the pool's tokens equal slice 1's for all {len(outputs)} "
+          f"served requests, {rejected} rejected; slice 10b wall "
+          f"{time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
 
 
 def _leaves(tree):

@@ -1,13 +1,13 @@
 """LogAct core, the port's copy: typed shared log (AgentBus) +
 deconstructed agent state machine (Driver / Voter / Decider / Executor),
-the AgentBus control plane (``AgentKernel``) and the swarm ``Supervisor``.
+the AgentBus control plane (``AgentKernel``), the swarm ``Supervisor`` and
+automatic failover (``StandbyExecutor``, ``ElasticWorkerPool``).
 Pure Python; kept as a local copy so that ``repro_torch`` imports nothing
 of the JAX package.
 
-Of the reference's exports, four are still missing: ``NetBus`` and
-``PROTO_VERSION`` (the network log, ``core/netbus.py``) and
-``StandbyExecutor`` and ``ElasticWorkerPool`` (``core/failover.py``),
-whose modules are not ported yet."""
+Of the reference's exports, two are still missing: ``NetBus`` and
+``PROTO_VERSION`` (the network log, ``core/netbus.py``), whose module is
+not ported yet."""
 from . import entries
 from .acl import AclError, BusClient, Permissions, ROLES
 from .agent import LogActAgent
@@ -17,6 +17,7 @@ from .decider import Decider
 from .driver import Driver, Planner, ScriptPlanner
 from .entries import Entry, Payload, PayloadType
 from .executor import Executor
+from .failover import ElasticWorkerPool, StandbyExecutor
 from .introspect import (BusObserver, TRACE_TYPES, health_check,
                          summarize_bus, trace_intents)
 from .kernel import (AgentKernel, AGENT_IMAGES, TrimPolicy, VOTER_LIBRARY,
@@ -36,7 +37,8 @@ __all__ = [
     "Decider", "Driver", "Planner", "ScriptPlanner", "Entry", "Payload",
     "PayloadType", "Executor", "health_check", "summarize_bus",
     "trace_intents", "BusObserver", "TRACE_TYPES",
-    "AgentKernel", "AGENT_IMAGES", "TrimPolicy", "VOTER_LIBRARY",
+    "ElasticWorkerPool", "StandbyExecutor", "AgentKernel", "AGENT_IMAGES",
+    "TrimPolicy", "VOTER_LIBRARY",
     "register_image", "CheckpointCoordinator", "Recoverable",
     "DeciderPolicy", "PolicyState", "RecoveryPlanner",
     "committed_unexecuted", "DirSnapshotStore", "MemorySnapshotStore",

@@ -19,8 +19,8 @@ from types import SimpleNamespace
 def _package(name):
     mods = {m: importlib.import_module(f"{name}.core.{m}")
             for m in ("acl", "agent", "bus", "codec", "driver", "entries",
-                      "faults", "introspect", "kernel", "recovery",
-                      "snapshot", "supervisor", "voter")}
+                      "failover", "faults", "introspect", "kernel",
+                      "recovery", "snapshot", "supervisor", "voter")}
     return SimpleNamespace(name=name, **mods)
 
 

@@ -1,10 +1,11 @@
 """Shared parts of the governed trainer's parity tests, on the CPU: each
-package's names for the scenarios (``Side``), the smoke ``qwen3_4b`` env
-that both sides start from the reference's initial parameters, and the
-record of a run (each intent's kind, args, decision and result,
-``env.step``, the data cursor) compared with losses to ``LOSS_RTOL``
-(rtol = 1e-4, as the trajectories of ``test_torch_train.py``) and
-everything else exactly.
+package's names for the scenarios (``Side``), the smoke env (``qwen3_4b``
+by default, or another arch) that both sides start from the reference's
+initial parameters, and the record of a run (each intent's kind, args,
+decision and result, ``env.step``, the data cursor) compared with losses
+to ``LOSS_RTOL`` (rtol = 1e-4, as the trajectories of
+``test_torch_train.py``) and everything else exactly (arrays with
+``equal_nan=False``).
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ from repro.configs.base import smoke as jax_smoke
 from repro.core import acl as jax_acl
 from repro.core import bus as jax_bus
 from repro.core import executor as jax_executor
+from repro.core import failover as jax_failover
 from repro.core import introspect as jax_introspect
 from repro.core import recovery as jax_recovery
 from repro.core import voter as jax_voter
@@ -26,7 +28,8 @@ from repro.train import train_step as jax_train_step
 from repro.train import trainer as jax_trainer
 from repro_torch.configs.base import get_config, smoke
 from repro_torch.core import (STANDARD_RULES, Executor, MemoryBus, RuleVoter,
-                              SqliteBus, committed_unexecuted, summarize_bus,
+                              SqliteBus, StandbyExecutor,
+                              committed_unexecuted, summarize_bus,
                               trace_intents)
 from repro_torch.core.acl import BusClient
 from repro_torch.data.pipeline import DataConfig
@@ -49,6 +52,8 @@ class Side:
         self.SqliteBus = jax_bus.SqliteBus if jax_side else SqliteBus
         self.BusClient = jax_acl.BusClient if jax_side else BusClient
         self.Executor = jax_executor.Executor if jax_side else Executor
+        self.StandbyExecutor = (jax_failover.StandbyExecutor if jax_side
+                                else StandbyExecutor)
         self.RuleVoter = jax_voter.RuleVoter if jax_side else RuleVoter
         self.STANDARD_RULES = (jax_voter.STANDARD_RULES if jax_side
                                else STANDARD_RULES)
@@ -65,27 +70,27 @@ class Side:
         self.build_training_agent = (jax_trainer.build_training_agent
                                      if jax_side else build_training_agent)
 
-    def env(self, tmpdir, opt_kw, remat="none"):
-        """Smoke qwen3_4b; both sides start from the reference's
+    def env(self, tmpdir, opt_kw, remat="none", arch="qwen3_4b"):
+        """Smoke ``arch``; both sides start from the reference's
         initializer at seed 0."""
         if self.name == "jax":
-            cfg = jax_smoke(jax_get_config("qwen3_4b"))
+            cfg = jax_smoke(jax_get_config(arch))
             env = jax_trainer.build_env(
                 cfg, jax_optimizer.OptimizerConfig(**opt_kw),
                 jax_train_step.StepConfig(remat=remat),
                 jax_pipeline.DataConfig(cfg.vocab, 16, 4), tmpdir)
             env.ensure_initialized()
             return env
-        cfg = smoke(get_config("qwen3_4b"))
+        cfg = smoke(get_config(arch))
         env = build_env(cfg, OptimizerConfig(**opt_kw),
                         StepConfig(remat=remat),
                         DataConfig(cfg.vocab, 16, 4), tmpdir, device="cpu")
-        env.state = env.init_state(params_from_numpy(jax_init(), "cpu"))
+        env.state = env.init_state(params_from_numpy(jax_init(arch), "cpu"))
         return env
 
 
-def jax_init():
-    m = JaxModel(jax_smoke(jax_get_config("qwen3_4b")), dtype=jnp.float32)
+def jax_init(arch="qwen3_4b"):
+    m = JaxModel(jax_smoke(jax_get_config(arch)), dtype=jnp.float32)
     return jax.tree.map(np.asarray,
                         split_params(m.init(jax.random.PRNGKey(0)))[0])
 
@@ -115,6 +120,6 @@ def same(a, b, path=""):
             same(x, y, f"{path}[{i}]")
     elif isinstance(a, float) or isinstance(b, float):
         np.testing.assert_allclose(a, b, rtol=LOSS_RTOL, atol=0,
-                                   err_msg=path)
+                                   equal_nan=False, err_msg=path)
     else:
         assert a == b, (path, a, b)

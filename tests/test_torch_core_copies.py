@@ -4,9 +4,9 @@
 line, apart from lines named here.
 
 * ``core/faults.py`` differs in the first line of its docstring.
-* Every other copy, ``core/bus.py``, ``core/codec.py``, ``core/kernel.py``
-  and ``core/supervisor.py`` among them, is the reference's file, byte for
-  byte.
+* Every other copy, ``core/bus.py``, ``core/codec.py``, ``core/kernel.py``,
+  ``core/supervisor.py`` and ``core/failover.py`` among them, is the
+  reference's file, byte for byte.
 """
 import difflib
 from pathlib import Path
@@ -40,7 +40,7 @@ def _diff(rel):
 def test_the_copies_are_all_checked():
     assert {"core/introspect.py", "core/recovery.py", "core/bus.py",
             "core/codec.py", "core/faults.py", "core/voter.py",
-            "core/kernel.py", "core/supervisor.py",
+            "core/kernel.py", "core/supervisor.py", "core/failover.py",
             "data/pipeline.py", "distributed/analytic.py"} <= set(COPIES)
 
 
