@@ -19,12 +19,16 @@ code is not 0 and no result line is printed:
    width of ``qwen3_4b`` (36 layers, random fp32 weights from a seeded
    ``torch.Generator``): 8 requests through the LogAct agent, one of them
    from a denylisted tenant; launch counts are zeroed just before and read
-   just after. The governed kernel run is made three times, with the
-   agent's log on the in-memory bus, in SQLite (group commit on) and in
-   the segmented KV store (both in a temporary directory): the tokens and
-   the paged launch counts must be equal, each durable log is closed and
-   read back by a fresh instance, which must give the entries the agent
-   read and no committed-unexecuted intent, and each run prints its wall,
+   just after. The governed kernel run is made four times, with the
+   agent's log on the in-memory bus, in SQLite (group commit on), in
+   the segmented KV store and (slice 11a) behind a bus server: a
+   ``NetBus`` client of an in-process ``BusServer`` over SQLite with
+   group commit (all in a temporary directory): the tokens and the paged
+   launch counts must be equal, each durable log is closed (client,
+   server, backing bus) and read back by a fresh instance (on the server's
+   file a ``SqliteBus``), which must give, with dense positions, the
+   entries the agent read and no committed-unexecuted intent; the
+   ``NetBus`` must not reconnect. Each run prints its wall,
    the time inside ``PagedEngine.admit``/``step``, the governance time a
    ``serve_step`` intent (the rest), the log's entries and bytes, and the
    calls into the log (appends, reads, tail probes, waits, the seconds
@@ -63,6 +67,20 @@ code is not 0 and no result line is printed:
    every launch is held to its plain version on its own inputs. Wall,
    engine and governance times per worker and the sweep's time are
    printed. 10a runs inside slice 4's crash drill (phase 7).
+4d. slice 11 — the network shared log (``core/netbus.py``,
+   ``launch/bus_server.py``) on slice 1's parameters. 11a is slice 1's run
+   on ``net`` (above; its governance ms a ``serve_step`` intent printed
+   beside SQLite's). 11b: the same run, with the server closed once the
+   Result of the ceil(n/2)-th of 11a's n ``serve_step`` intents is
+   acknowledged and a successor bound to its port over the same SQLite
+   bus; 11c: the same run under the port's
+   ``net.server.reply.drop_append`` at the middle one of 11a's appends
+   (the append commits, its reply is lost, the retry is answered from
+   the server's dedupe table). Each must give slice 1's tokens and paged
+   launches (decode steps x 36), a reconnect, and a read-back of as many
+   entries as 11a's log, dense, with no committed-unexecuted intent; 11b
+   a new server epoch. Their launches, and 11a's, join the ``kernels``
+   line.
 5. slice 3 — the governed static-batching serving path at the full width
    of ``qwen3_4b``, on slice 1's parameters: the 8 requests of slice 2 in
    two ``serve_batch`` intents, each dense prefill running the
@@ -293,8 +311,12 @@ ON_CARD_BYTES = 40e9
 ALLOC_ROUND = 512
 DECODE_WARMUP, DECODE_TIMED = 2, 5
 # slice 1's governed kernel run is made once on each of these logs: the
-# in-memory bus, SQLite with group commit, and the segmented KV store
-SERVE_BUSES = ("memory", "sqlite", "kv")
+# in-memory bus, SQLite with group commit, the segmented KV store, and
+# (slice 11a) a NetBus to an in-process BusServer over SQLite
+SERVE_BUSES = ("memory", "sqlite", "kv", "net")
+# slice 11b: the deadline for a successor BusServer to bind its
+# predecessor's port
+REBIND_DEADLINE_S = 10.0
 # slice 9a's TrimPolicy (slice 1's run writes 239 entries, so a maintain
 # falls mid-run; the entries kept below the low-water mark give the reader
 # thread room), and the deadline of each of slice 9's waits
@@ -1531,6 +1553,10 @@ def main() -> None:
     # on slice 1's parameters (10a runs inside slice 4's crash drill)
     pooled = slice_elastic_pool(smi, paged)
 
+    # 4d. slice 11b and 11c: the log behind a server through a restart and
+    # a lost append reply, on slice 1's parameters (11a ran in slice 1)
+    netted = slice_netbus(smi, paged)
+
     # 5. slice 3: governed static serving at full qwen3_4b width, on slice
     # 1's parameters, which are freed after it
     flash = slice_qwen3_static(smi, paged.pop("cfg"), paged.pop("params"))
@@ -1565,7 +1591,7 @@ def main() -> None:
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + spawned["9a"]
-        + spawned["9b"] + pooled + new["paged_attention"],
+        + spawned["9b"] + pooled + netted + new["paged_attention"],
         "ssd_intra": ssd["launches"] + last["ssd_intra"]
         + entry["ssd_intra"],
         "flash_attention": flash["launches"] + new["flash_attention"]
@@ -1576,6 +1602,8 @@ def main() -> None:
           f"SQLite) + {spawned['9b']} (slice 9b, two kernel-spawned "
           f"qwen3_4b agents) + {pooled} (slice 10b, the elastic pool's "
           f"healthy qwen3_4b worker and the failing one's replacement) + "
+          f"{netted} (slice 11, qwen3_4b with its log behind a bus server: "
+          f"11a, 11b across a restart, 11c with a lost append reply) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
           f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
           f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
@@ -1670,6 +1698,22 @@ def slice_qwen3(smi):
               for b, r in runs.items()}
     walls = {b: r["wall"] for b, r in runs.items()}
     outputs = dict(pl.outputs)
+    net = runs["net"]
+    if net["net"]["reconnects"] != 0 or net["net"]["flagged"] != 0:
+        raise AssertionError(f"11a: the NetBus reconnected "
+                             f"{net['net']['reconnects']} times, or its view "
+                             f"held {net['net']['flagged']} _sched flags")
+    print(f"[slice 11] 11a: slice 1's governed kernel run with its log "
+          f"behind a BusServer (NetBus -> in-process server -> SqliteBus, "
+          f"group commit): wall {walls['net']:.3f} s (sqlite "
+          f"{walls['sqlite']:.3f} s, memory {walls['memory']:.3f} s); "
+          f"governance {gov_ms['net']:.3f} ms a serve_step intent beside "
+          f"sqlite's {gov_ms['sqlite']:.3f} ms, kv's {gov_ms['kv']:.3f} ms "
+          f"and memory's {gov_ms['memory']:.3f} ms in this call; "
+          f"{net['net']['requests']} requests, 0 reconnects; paged "
+          f"launches {net['launches']} | on {smi}")
+    net = dict(launches=net["launches"], entries=net["net"]["entries"],
+               appends=net["calls"]["appends"], n_intents=net["n_intents"])
     del runs, run
 
     ref = serve(cfg, params, requests, use_kernel=False)
@@ -1716,7 +1760,7 @@ def slice_qwen3(smi):
     t.pop("blocks")
     return {"launches": launches, "timing": t, "cfg": cfg, "params": params,
             "requests": requests, "blocked": blocked, "outputs": outputs,
-            "gov_ms": gov_ms, "walls": walls}
+            "gov_ms": gov_ms, "walls": walls, "net": net}
 
 
 def _row(entry):
@@ -1737,25 +1781,126 @@ def _unsched(row):
     return row[:3] + (body,)
 
 
+class _NetLog:
+    """Slice 11's log behind a server: a ``NetBus`` client of an
+    in-process ``BusServer`` (port 0) over a ``SqliteBus`` with group
+    commit at ``path``. ``restart`` closes the server and binds a
+    successor over the same bus to the same port; ``close`` closes the
+    client, the server and the bus, in that order."""
+
+    def __init__(self, path):
+        from repro_torch.core import NetBus, SqliteBus
+        from repro_torch.launch.bus_server import BusServer
+        self._server_cls = BusServer
+        self.backing = SqliteBus(path)
+        self.server = BusServer(self.backing).start()
+        self.epochs = [self.server.epoch]
+        self.restart_s = None
+        host, port = self.server.address
+        self.bus = NetBus(f"{host}:{port}", client_id="chip-smoke")
+
+    def restart(self):
+        host, port = self.server.address
+        t0 = time.perf_counter()
+        self.server.close()
+        while True:
+            try:
+                self.server = self._server_cls(self.backing, host=host,
+                                               port=port).start()
+                break
+            except OSError:
+                if time.perf_counter() - t0 > REBIND_DEADLINE_S:
+                    raise
+                time.sleep(0.05)
+        self.restart_s = time.perf_counter() - t0
+        self.epochs.append(self.server.epoch)
+
+    def close(self):
+        self.bus.close()
+        self.server.close()
+        self.backing.close()
+
+
+def _restart_mid_run(n_results):
+    """11b's drill: once the Result of the ``n_results``-th serve_step
+    intent has been acknowledged, the server restarts (a wrapper on the
+    client's ``append_many``, between two intents)."""
+    @contextlib.contextmanager
+    def drill(net):
+        from repro_torch.core.entries import PayloadType
+        append_many, steps, done = net.bus.append_many, set(), []
+
+        def append_then_restart(payloads):
+            positions = append_many(payloads)
+            for p in payloads:
+                if p.type == PayloadType.INTENT \
+                        and p.body["kind"] == "serve_step":
+                    steps.add(p.body["intent_id"])
+                elif p.type == PayloadType.RESULT \
+                        and p.body["intent_id"] in steps:
+                    done.append(p.body["intent_id"])
+                    if len(done) == n_results:
+                        net.restart()
+            return positions
+        net.bus.append_many = append_then_restart
+        yield
+        if len(net.epochs) != 2:
+            raise AssertionError(f"11b: {len(done)} serve_step Results, "
+                                 f"the server restarted "
+                                 f"{len(net.epochs) - 1} times, want once "
+                                 f"after Result {n_results}")
+    return drill
+
+
+def _lost_append_reply(at_hit):
+    """11c's drill: the port's ``net.server.reply.drop_append`` fires at
+    the server's ``at_hit``-th append (the append commits, the reply is
+    lost, the client's retry is answered from the dedupe table)."""
+    @contextlib.contextmanager
+    def drill(net):
+        from repro_torch.core import faults
+        point = "net.server.reply.drop_append"
+        with faults.injected(faults.FaultPlan.single(
+                point, "disconnect", at_hit=at_hit)) as inj:
+            yield
+        if [(a.point, a.at_hit) for a in inj.fired] != [(point, at_hit)]:
+            raise AssertionError(f"11c: {point} did not fire at append "
+                                 f"{at_hit}: {inj.hits.get(point)} hits")
+    return drill
+
+
 def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
-                  smi):
+                  smi, name=None, drill=None):
     """Slice 1's governed kernel run with the agent's log on ``backend``
-    (``memory``, or ``sqlite`` with group commit and ``kv`` in ``tmp``).
-    Checks the run as the plan says; a durable log is closed and read back
-    through a fresh instance, which must give the entries the agent's
-    client read and no committed-unexecuted intent. Prints the wall, the
-    time inside the engine, the governance time a serve_step intent, the
-    log's entries and bytes, and the calls into the log."""
+    (``memory``, or ``sqlite`` with group commit, ``kv`` and ``net``, a
+    ``_NetLog``, in ``tmp``), under ``drill(net)`` where one is given
+    (slice 11b and 11c; ``name`` then labels the run and its file).
+    Checks the run as the plan says; a durable log is closed (on net the
+    client, the server, the bus behind it) and read back through a fresh
+    instance (on net a ``SqliteBus`` on the file), which must give, with
+    dense positions, the entries the agent's client read and no
+    committed-unexecuted intent. Prints the wall, the time inside the
+    engine, the governance time a serve_step intent, the log's entries
+    and bytes, and the calls into the log; on net, the client's
+    reconnects and the server epochs."""
     import torch
     from repro_torch.core import committed_unexecuted, make_bus
     t0 = time.perf_counter()
+    label = name or backend
+    sqlite = backend in ("sqlite", "net")  # net: SQLite behind the server
     path = None if backend == "memory" else os.path.join(
-        tmp, f"serve-{backend}" + (".db" if backend == "sqlite" else ""))
-    bus = make_bus(backend, path)
-    run = serve(cfg, params, requests, use_kernel=True, bus=bus)
+        tmp, f"serve-{label}" + (".db" if sqlite else ""))
+    net = _NetLog(path) if backend == "net" else None
+    bus = net.bus if net else make_bus(backend, path)
+    try:
+        with drill(net) if drill else contextlib.nullcontext():
+            run = serve(cfg, params, requests, use_kernel=True, bus=bus)
+    finally:
+        if net:
+            net.close()
     pl, eng = run["planner"], run["engine"]
     want_launches = eng.n_steps * cfg.n_layers
-    print(f"  kernel run on {backend}: served {sorted(pl.outputs)} rejected "
+    print(f"  kernel run on {label}: served {sorted(pl.outputs)} rejected "
           f"{pl.rejected} aborts {run['n_aborts']} admit steps "
           f"{run['admit_steps']} decode steps {eng.n_steps} "
           f"paged_attention launches {run['launches']} (want "
@@ -1767,7 +1912,7 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
         raise AssertionError("the veto left no Abort entry on the log")
     if len(set(run["admit_steps"])) < 2:
         raise AssertionError("admissions were not staggered over steps")
-    _check_launches(f"the kernel run on {backend}", run, cfg)
+    _check_launches(f"the kernel run on {label}", run, cfg)
     for rid, toks in pl.outputs.items():
         if len(toks) != served[rid]["max_new_tokens"] or not all(
                 0 <= t < cfg.vocab for t in toks):
@@ -1777,25 +1922,28 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
     on_disk = "in memory"
     if path is not None:
         bus.close()
-        files = [path] if backend == "sqlite" else [
+        files = [path] if sqlite else [
             os.path.join(path, f) for f in os.listdir(path)]
         files += [path + s for s in ("-wal", "-shm")
-                  if backend == "sqlite" and os.path.exists(path + s)]
+                  if sqlite and os.path.exists(path + s)]
         on_disk = f"{sum(os.path.getsize(f) for f in files)} B on disk"
-        fresh = make_bus(backend, path)
+        fresh = make_bus("sqlite" if sqlite else backend, path)
         back = [_row(e) for e in fresh.read(0)]
         seen = [_row(e) for e in log]
         flagged = sum(a != b for a, b in zip(back, seen))
+        if [r[0] for r in back] != list(range(len(back))):
+            raise AssertionError(f"the {label} log's positions read back "
+                                 f"from disk are not dense")
         if len(back) != len(seen) or any(
                 _unsched(a) != _unsched(b) for a, b in zip(back, seen)):
-            raise AssertionError(f"the {backend} log read back from disk "
+            raise AssertionError(f"the {label} log read back from disk "
                                  f"differs from what the agent read")
         if committed_unexecuted(fresh):
-            raise AssertionError(f"the {backend} log holds a committed, "
+            raise AssertionError(f"the {label} log holds a committed, "
                                  f"unexecuted intent")
         fresh.close()
     gov_s = run["wall"] - run["model_s"]
-    print(f"  governed kernel run on {backend}: {n_tokens} tokens in "
+    print(f"  governed kernel run on {label}: {n_tokens} tokens in "
           f"{run['wall']:.3f} s = {n_tokens / run['wall']:.2f} tokens/s end "
           f"to end; inside PagedEngine.admit/step {run['model_s']:.3f} s; "
           f"governance {gov_s:.3f} s = {1e3 * gov_s / run['n_intents']:.3f} "
@@ -1808,7 +1956,7 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
              "intent")
           + f" | on {smi}")
     c = run["calls"]
-    print(f"  calls into the {backend} log over the run: {c['appends']} "
+    print(f"  calls into the {label} log over the run: {c['appends']} "
           f"appends ({c['entries']} entries), {c['reads']} reads, "
           f"{c['tails']} tail probes, {c['waits']} waits; inside the bus "
           f"{c['bus_s']:.3f} s = {100 * c['bus_s'] / gov_s:.1f}% of the "
@@ -1817,6 +1965,21 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
              f"in {c['lists']} _refresh calls (a directory LIST each, with "
              f"the fetch of segments not seen before)")
           + f" | on {smi}")
+    if net:
+        run["net"] = dict(reconnects=bus.n_reconnects,
+                          requests=bus.n_requests, epochs=net.epochs,
+                          client_epoch=bus.server_epoch,
+                          restart_s=net.restart_s, entries=len(log),
+                          flagged=flagged)
+        print(f"  the {label} client over the run: {bus.n_requests} "
+              f"requests, {bus.n_reconnects} reconnects; server epochs "
+              f"{[e[:8] for e in net.epochs]}, the client's last "
+              f"{bus.server_epoch[:8]}"
+              + ("" if net.restart_s is None else
+                 f"; the restart (close, successor bound to port "
+                 f"{net.server.address[1]}) took "
+                 f"{1e3 * net.restart_s:.3f} ms")
+              + f" | on {smi}")
     del eng, run["engine"]
     torch.cuda.empty_cache()
     run["secs"] = time.perf_counter() - t0
@@ -4062,6 +4225,64 @@ def slice_elastic_pool(smi, paged):
     print(f"  10b: the pool's tokens equal slice 1's for all {len(outputs)} "
           f"served requests, {rejected} rejected; slice 10b wall "
           f"{time.perf_counter() - t_slice:.2f} s | on {smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the network shared log (11a is slice 1's run on net)
+# ---------------------------------------------------------------------------
+
+def slice_netbus(smi, paged):
+    """11b and 11c: slice 1's governed kernel run with its log behind a
+    ``BusServer`` (``_serve_on_bus`` on ``net``), once with the server
+    restarted after the Result of the ceil(n/2)-th of 11a's n serve_step
+    intents, once with the reply to the middle one of 11a's appends lost
+    (``net.server.reply.drop_append``). Each must give the memory run's
+    tokens and paged launches, every batch once (as many entries as
+    11a's log, dense), and a reconnect; 11b a new server epoch. Returns
+    the paged launches of 11a, 11b and 11c."""
+    cfg, params, a = paged["cfg"], paged["params"], paged["net"]
+    requests, blocked = paged["requests"], paged["blocked"]
+    served = {r["req_id"]: r for r in requests if r["tenant"] != "blocked"}
+    after, at_hit = math.ceil(a["n_intents"] / 2), a["appends"] // 2
+    print(f"[slice 11] 11b: the server restarted after the Result of "
+          f"serve_step intent {after} of {a['n_intents']}; 11c: the reply "
+          f"to append {at_hit} of {a['appends']} lost; on {smi}")
+    t0 = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-net-") as tmp:
+        for key, name, drill in (
+                ("11b", "net-restart", _restart_mid_run(after)),
+                ("11c", "net-lost-reply", _lost_append_reply(at_hit))):
+            runs[key] = _serve_on_bus(cfg, params, requests, served,
+                                      blocked, "net", tmp, smi, name=name,
+                                      drill=drill)
+    for key, run in runs.items():
+        n = run["net"]
+        _same_outputs(key, run["planner"].outputs, paged["outputs"])
+        if run["launches"] != a["launches"]:
+            raise AssertionError(f"{key}: {run['launches']} paged "
+                                 f"launches, 11a's run {a['launches']}")
+        if n["entries"] != a["entries"]:
+            raise AssertionError(f"{key}: the log holds {n['entries']} "
+                                 f"entries, 11a's {a['entries']}: a batch "
+                                 f"is missing or twice")
+        if n["reconnects"] < 1:
+            raise AssertionError(f"{key}: the client never reconnected")
+    b = runs["11b"]["net"]
+    if b["epochs"][0] == b["epochs"][1] or b["client_epoch"] != \
+            b["epochs"][1]:
+        raise AssertionError(f"11b: epochs {b['epochs']}, the client's "
+                             f"{b['client_epoch']}")
+    launches = a["launches"] + sum(r["launches"] for r in runs.values())
+    print(f"  11b and 11c: slice 1's tokens for all {len(paged['outputs'])} "
+          f"served requests and its {a['launches']} paged launches each; "
+          f"{a['entries']} entries each, read back dense; reconnects "
+          f"{runs['11b']['net']['reconnects']} (11b, a new epoch) and "
+          f"{runs['11c']['net']['reconnects']} (11c); walls "
+          f"{runs['11b']['wall']:.3f} s and {runs['11c']['wall']:.3f} s; "
+          f"slice 11 paged launches {launches}; 11b and 11c took "
+          f"{time.perf_counter() - t0:.2f} s | on {smi}")
     return launches
 
 

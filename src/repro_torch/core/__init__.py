@@ -3,11 +3,7 @@ deconstructed agent state machine (Driver / Voter / Decider / Executor),
 the AgentBus control plane (``AgentKernel``), the swarm ``Supervisor`` and
 automatic failover (``StandbyExecutor``, ``ElasticWorkerPool``).
 Pure Python; kept as a local copy so that ``repro_torch`` imports nothing
-of the JAX package.
-
-Of the reference's exports, two are still missing: ``NetBus`` and
-``PROTO_VERSION`` (the network log, ``core/netbus.py``), whose module is
-not ported yet."""
+of the JAX package."""
 from . import entries
 from .acl import AclError, BusClient, Permissions, ROLES
 from .agent import LogActAgent
@@ -23,6 +19,7 @@ from .introspect import (BusObserver, TRACE_TYPES, health_check,
 from .kernel import (AgentKernel, AGENT_IMAGES, TrimPolicy, VOTER_LIBRARY,
                      register_image)
 from .lifecycle import CheckpointCoordinator, Recoverable
+from .netbus import NetBus, PROTO_VERSION
 from .policy import DeciderPolicy, PolicyState
 from .recovery import RecoveryPlanner, committed_unexecuted
 from .snapshot import DirSnapshotStore, MemorySnapshotStore, SnapshotStore
@@ -33,7 +30,7 @@ from .voter import (RuleVoter, StatVoter, Voter, VoteDecision,
 __all__ = [
     "entries", "AclError", "BusClient", "Permissions", "ROLES",
     "LogActAgent", "AgentBus", "KvBus", "MemoryBus", "SqliteBus",
-    "TrimmedError", "make_bus",
+    "TrimmedError", "make_bus", "NetBus", "PROTO_VERSION",
     "Decider", "Driver", "Planner", "ScriptPlanner", "Entry", "Payload",
     "PayloadType", "Executor", "health_check", "summarize_bus",
     "trace_intents", "BusObserver", "TRACE_TYPES",

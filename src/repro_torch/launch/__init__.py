@@ -5,11 +5,16 @@
 * ``train`` — governed training (``python -m repro_torch.launch.train``);
 * ``dryrun`` — every (arch x shape) cell traced on the meta device at full
   size and costed on the H100's roofline
-  (``python -m repro_torch.launch.dryrun --all``).
+  (``python -m repro_torch.launch.dryrun --all``);
+* ``bus_server`` — the network shared log's server, which fronts a memory,
+  SQLite or KV log for ``NetBus`` clients (``python -m
+  repro_torch.launch.bus_server --backend sqlite --path bus.db --port 0
+  --port-file bus.port``).
 
 ``serve`` and ``train`` run on the card unless ``--device cpu`` is given,
 and raise without CUDA; ``dryrun`` allocates no tensor of a cell and needs
-no card. The reference's ``launch/mesh.py`` builds a TPU device mesh and
-has no counterpart on one card. ``launch/bus_server.py`` and
-``launch/procs.py`` (the networked log and its processes) are not ported.
+no card, and ``bus_server`` runs no model. The reference's
+``launch/mesh.py`` builds a TPU device mesh and has no counterpart on one
+card. ``launch/procs.py`` (the components as processes of their own
+around a bus server) is not ported yet.
 """

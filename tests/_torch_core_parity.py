@@ -1,9 +1,9 @@
 """The parity harness of the port's ``core`` modules against the
-reference's, on the CPU: each package's ``core`` modules as one
-namespace (``REF``, ``PORT``), a record of what a scenario observes
-(``Record``, ``_obs``), entry timestamps and ids from counters
-(``_clock``),
-and one scenario run per package (``_run``, ``_both``).
+reference's, on the CPU: each package's ``core`` modules and its
+``launch.bus_server`` as one namespace (``REF``, ``PORT``), a record of
+what a scenario observes (``Record``, ``_obs``), entry timestamps and ids
+from counters (``_clock``), and one scenario run per package (``_run``,
+``_both``).
 
 A scenario is written once, as a function ``scenario(pkg, rec, root,
 *args)`` of one package; the port's record must equal the reference's.
@@ -20,8 +20,11 @@ def _package(name):
     mods = {m: importlib.import_module(f"{name}.core.{m}")
             for m in ("acl", "agent", "bus", "codec", "driver", "entries",
                       "failover", "faults", "introspect", "kernel",
-                      "recovery", "snapshot", "supervisor", "voter")}
-    return SimpleNamespace(name=name, **mods)
+                      "netbus", "recovery", "snapshot", "supervisor",
+                      "voter")}
+    return SimpleNamespace(
+        name=name, bus_server=importlib.import_module(
+            f"{name}.launch.bus_server"), **mods)
 
 
 REF, PORT = _package("repro"), _package("repro_torch")

@@ -17,14 +17,17 @@ Covered: the codec's bytes; each package reading the other's SQLite files
 (group commit on and off, a fork) and KV directories (after a trim, a
 compaction and a fork), and the legacy JSON rows and segments; the
 conformance, fork, durability, KV segment, group-commit and lifecycle
-scenarios on sqlite and kv; every SQLite and KV crash point; ``make_bus``;
-the governed serving agent and the executor-crash drill on durable logs
-against the JAX side; and a broken control (a port bus whose ``read``
-drops the last entry) that the comparison must catch.
+scenarios on sqlite and kv; every SQLite and KV crash point; ``make_bus``
+(``net`` against an in-process server); the governed serving agent and
+the executor-crash drill on durable logs against the JAX side; and a
+broken control (a port bus whose ``read`` drops the last entry) that the
+comparison must catch.
 
 The harness (``REF``/``PORT``, ``Record``, ``_clock``, ``_run``,
 ``_both``) is shared with ``test_torch_agent_kernel.py`` and lives in
-``tests/_torch_core_parity.py``.
+``tests/_torch_core_parity.py``. ``_bus_at``'s ``net`` backend (a
+``NetBus`` to a server over a ``SqliteBus``, ``_server_at``,
+``_close_servers``) and ``_serve`` serve ``test_torch_netbus.py``.
 
 No hypothesis: every input is fixed.
 """
@@ -60,14 +63,44 @@ torch.set_num_threads(1)
 
 
 def _path(root, backend, name="log"):
-    return os.path.join(root, name + (".db" if backend == "sqlite" else ""))
+    return os.path.join(root, name + (".db" if backend in ("sqlite", "net")
+                                      else ""))
+
+
+#: the net backend's logs: path -> (its in-process BusServer, the
+#: SqliteBus behind it), until ``_close_servers``
+_SERVERS = {}
+
+
+def _server_at(pkg, path):
+    """The address of ``pkg``'s ``BusServer`` over a ``SqliteBus`` at
+    ``path``, started on port 0 at the first call for the path."""
+    if path not in _SERVERS:
+        backing = pkg.bus.SqliteBus(path)
+        _SERVERS[path] = (pkg.bus_server.BusServer(backing).start(), backing)
+    host, port = _SERVERS[path][0].address
+    return f"{host}:{port}"
+
+
+def _close_servers():
+    """Close every net log's server, then the bus behind it."""
+    while _SERVERS:
+        srv, backing = _SERVERS.popitem()[1]
+        srv.close()
+        backing.close()
 
 
 def _bus_at(pkg, backend, path, **kw):
+    """A bus of ``pkg`` on ``backend`` at ``path``. For ``net``, a
+    ``NetBus`` to the server of the log at ``path``: a second call for the
+    path opens a second client of the same server."""
     if backend == "memory":
         return pkg.bus.MemoryBus()
     if backend == "sqlite":
         return pkg.bus.SqliteBus(path, **kw)
+    if backend == "net":
+        return pkg.netbus.NetBus(_server_at(pkg, path), client_id="parity",
+                                 **kw)
     return pkg.bus.KvBus(path, **kw)
 
 
@@ -712,15 +745,24 @@ def test_contract_records_are_equal(tmp_path, scenario, backend):
     assert got == want
 
 
-def sc_make_bus(pkg, rec, root):
+def sc_make_bus(pkg, rec, root, backends=("memory", "sqlite", "kv")):
+    """``make_bus`` on each of ``backends``; ``net`` to an in-process
+    server over a SqliteBus, closed before the scenario ends."""
     E = pkg.entries
-    for backend in ("memory", "sqlite", "kv"):
-        path = None if backend == "memory" else _path(root, backend)
-        bus = pkg.bus.make_bus(backend, path)
-        rec.see(f"{backend} class", type(bus).__name__)
-        rec.see(f"{backend} append", bus.append(E.mail(backend)))
-        rec.do(f"{backend} read", bus.read, 0)
-        bus.close()
+    try:
+        for backend in backends:
+            path = None if backend == "memory" else _path(root, backend)
+            if backend == "net":
+                path = _server_at(pkg, path)
+            bus = pkg.bus.make_bus(backend, path)
+            rec.see(f"{backend} class", type(bus).__name__)
+            rec.see(f"{backend} of its own package",
+                    type(bus).__module__.split(".")[0] == pkg.name)
+            rec.see(f"{backend} append", bus.append(E.mail(backend)))
+            rec.do(f"{backend} read", bus.read, 0)
+            bus.close()
+    finally:
+        _close_servers()
     rec.do("sqlite without a path", pkg.bus.make_bus, "sqlite")
     rec.do("unknown", pkg.bus.make_bus, "tape")
 
@@ -732,12 +774,14 @@ def test_make_bus_memory_sqlite_kv(tmp_path):
         ["MemoryBus", "SqliteBus", "KvBus"]
 
 
-def test_make_bus_net_needs_the_network_bus_module():
-    """The port's bus is the reference's text, whose ``make_bus("net")``
-    imports ``.netbus``; the port has no such module yet, so the import
-    fails before any connection is tried."""
-    with pytest.raises(ModuleNotFoundError, match="repro_torch.core.netbus"):
-        PORT.bus.make_bus("net", "127.0.0.1:1")
+def test_make_bus_net(tmp_path):
+    """``make_bus("net", "host:port")`` gives each package's own
+    ``NetBus``, which appends and reads back through a server."""
+    want, got = _both(sc_make_bus, tmp_path, ("net",))
+    assert got == want
+    assert got.get("net class") == "NetBus"
+    assert got.get("net of its own package") is True
+    assert got.get("net read")[0][2] == {"text": "net", "sender": "user"}
 
 
 # ---------------------------------------------------------------------------
@@ -844,7 +888,9 @@ def _unsched(entry):
 def _serve(serving, pkg, backend, root):
     """The governed continuous serving agent (smoke qwen3_4b, a tenant
     denylist) on a durable log of ``pkg``; the log is then reopened by a
-    fresh instance, which must read what the agent's client read. One
+    fresh instance (on ``net``, a ``SqliteBus`` on the server's file once
+    the client, the server and its bus are closed), which must read what
+    the agent's client read. One
     difference is the reference's own: a bus that serves back the objects
     it was given (KV's segment cache, like the memory bus) shows the
     agent the planner's later ``_sched`` flags in its InfIn entries, which
@@ -878,7 +924,8 @@ def _serve(serving, pkg, backend, root):
     agent.run_until_idle()
     log = _obs(agent.external_client("t", "admin").read(0))
     bus.close()
-    fresh = _bus_at(pkg, backend, path)
+    _close_servers()  # on net, the file behind the server is read back
+    fresh = _bus_at(pkg, "sqlite" if backend == "net" else backend, path)
     back = _obs(fresh.read(0))
     assert pkg.recovery.committed_unexecuted(fresh) == []
     fresh.close()

@@ -1,12 +1,14 @@
 """The modules that ``repro_torch`` keeps as copies of the reference's
-(``core/``, the numpy-only ``data/pipeline.py`` and the configs-only
-``distributed/analytic.py``) hold the reference's text: equal line for
-line, apart from lines named here.
+(``core/``, the numpy-only ``data/pipeline.py``, the configs-only
+``distributed/analytic.py`` and ``launch/bus_server.py``) hold the
+reference's text: equal line for line, apart from lines named here.
 
 * ``core/faults.py`` differs in the first line of its docstring.
+* ``launch/bus_server.py`` is the reference's text with every
+  ``repro.`` read as ``repro_torch.``, and no other difference.
 * Every other copy, ``core/bus.py``, ``core/codec.py``, ``core/kernel.py``,
-  ``core/supervisor.py`` and ``core/failover.py`` among them, is the
-  reference's file, byte for byte.
+  ``core/supervisor.py``, ``core/failover.py`` and ``core/netbus.py``
+  among them, is the reference's file, byte for byte.
 """
 import difflib
 from pathlib import Path
@@ -18,7 +20,8 @@ PORT, REF = ROOT / "src" / "repro_torch", ROOT / "src" / "repro"
 COPIES = sorted(p.relative_to(PORT).as_posix()
                 for p in (PORT / "core").glob("*.py")
                 if p.name != "__init__.py") + ["data/pipeline.py",
-                                               "distributed/analytic.py"]
+                                               "distributed/analytic.py",
+                                               "launch/bus_server.py"]
 
 FAULTS_OWN_LINES = [
     '"""Deterministic fault injection for the chaos plane.',
@@ -41,7 +44,8 @@ def test_the_copies_are_all_checked():
     assert {"core/introspect.py", "core/recovery.py", "core/bus.py",
             "core/codec.py", "core/faults.py", "core/voter.py",
             "core/kernel.py", "core/supervisor.py", "core/failover.py",
-            "data/pipeline.py", "distributed/analytic.py"} <= set(COPIES)
+            "core/netbus.py", "data/pipeline.py", "distributed/analytic.py",
+            "launch/bus_server.py"} <= set(COPIES)
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -51,5 +55,11 @@ def test_copy_holds_the_reference_text(rel):
         assert own == FAULTS_OWN_LINES
         assert len(dropped) == 1 and dropped[0].startswith(
             '"""Deterministic fault injection for the chaos plane')
+        return
+    if rel == "launch/bus_server.py":
+        ref = (REF / rel).read_text()
+        assert (PORT / rel).read_text() == ref.replace("repro.",
+                                                       "repro_torch.")
+        assert ref.count("repro.") == 10
         return
     assert (PORT / rel).read_bytes() == (REF / rel).read_bytes()

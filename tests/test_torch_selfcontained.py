@@ -1,12 +1,15 @@
 """``repro_torch``, ``chip_smoke.py``, ``tools/kernel_ab.py`` and the
 port's examples stand alone: no import of ``jax`` or of the reference
 package ``repro``, by an AST scan of every module and by importing the
-serving and the training modules, the launchers and the core package
-(the agent kernel and the supervisor among it) in a fresh interpreter."""
+serving and the training modules, the launchers, the bus server and the
+core package (the agent kernel, the supervisor and the network log among
+it) in a fresh interpreter; and the port's bus server runs as a process
+of its own for a port ``NetBus``."""
 import ast
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -59,7 +62,9 @@ def test_port_modules_exist():
             "repro_torch/launch/train.py",
             "repro_torch/launch/dryrun.py",
             "repro_torch/distributed/analytic.py",
-            "repro_torch/distributed/roofline.py"} <= names
+            "repro_torch/distributed/roofline.py",
+            "repro_torch/core/netbus.py",
+            "repro_torch/launch/bus_server.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}
@@ -103,3 +108,45 @@ def test_core_import_pulls_in_neither():
     _import_pulls_in_neither("repro_torch.core")
     _import_pulls_in_neither("repro_torch.core.kernel")
     _import_pulls_in_neither("repro_torch.core.supervisor")
+    _import_pulls_in_neither("repro_torch.core.netbus")
+
+
+def test_bus_server_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.launch.bus_server")
+
+
+def test_bus_server_runs_as_a_process_of_its_own(tmp_path):
+    """``python -m repro_torch.launch.bus_server`` over SQLite on port 0
+    publishes its port; a port ``NetBus`` appends and reads back. The
+    process is killed and waited for, whatever happens."""
+    from repro_torch.core import entries
+    from repro_torch.core.netbus import NetBus
+
+    port_file = tmp_path / "bus.port"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.bus_server",
+         "--backend", "sqlite", "--path", str(tmp_path / "bus.db"),
+         "--port", "0", "--port-file", str(port_file)],
+        env=env, cwd=tmp_path, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE)
+    bus = None
+    try:
+        deadline = time.monotonic() + 20.0
+        while not port_file.exists():
+            assert proc.poll() is None, proc.stderr.read()
+            assert time.monotonic() < deadline, "no port file in 20 s"
+            time.sleep(0.05)
+        bus = NetBus(f"127.0.0.1:{port_file.read_text()}",
+                     client_id="selfcontained", connect_timeout=10.0,
+                     request_timeout=10.0)
+        assert bus.append_many([entries.mail("over"),
+                                entries.mail("tcp")]) == [0, 1]
+        assert [e.body["text"] for e in bus.read(0)] == ["over", "tcp"]
+        assert bus.tail(refresh=True) == 2
+    finally:
+        if bus is not None:
+            bus.close()
+        proc.kill()
+        proc.wait(timeout=20.0)
+        proc.stderr.close()
