@@ -81,6 +81,25 @@ code is not 0 and no result line is printed:
    entries as 11a's log, dense, with no committed-unexecuted intent; 11b
    a new server epoch. Their launches, and 11a's, join the ``kernels``
    line.
+4e. slice 12 — the components as OS processes (``launch/procs.py``) on
+   slice 1's parameters. 12a: slice 1's run with its log on a bus-server
+   process (the port's ``BusServerProcess("sqlite", ...)``, reached
+   through a ``NetBus``); 12b: the same run with that process SIGKILLed
+   (``BusServerProcess.kill``) once the Result of the ceil(n/2)-th
+   ``serve_step`` intent is acknowledged, and a successor started on the
+   same file and port through ``python -m repro_torch.launch.bus_server``.
+   Each must give slice 1's tokens and paged launches, every launch held
+   to its plain version, and, once the server processes are gone, a
+   read-back by a fresh ``SqliteBus`` of as many entries as 11a's log,
+   dense, with no ``_sched`` flag in the agent's view; 12b a reconnect
+   and a new server epoch, so no acknowledged append was lost. 12c: the
+   process failover drill of the reference's ``tests/test_netbus.py``
+   with the port's ``procs``: a bus server, executor, voters, standby and
+   driver as processes, the driver SIGKILLed after two results; the plan
+   must complete with one InfOut and one execution a step, the lineage's
+   intent ids and two elections one epoch apart. The seconds from the
+   kill to the standby's election and from there to ``done`` are printed.
+   12a's and 12b's launches join the ``kernels`` line.
 5. slice 3 — the governed static-batching serving path at the full width
    of ``qwen3_4b``, on slice 1's parameters: the 8 requests of slice 2 in
    two ``serve_batch`` intents, each dense prefill running the
@@ -317,6 +336,15 @@ SERVE_BUSES = ("memory", "sqlite", "kv", "net")
 # slice 11b: the deadline for a successor BusServer to bind its
 # predecessor's port
 REBIND_DEADLINE_S = 10.0
+# slice 12c (and tests/test_torch_procs.py): the process failover drill of
+# the reference's tests/test_netbus.py:277-342 at its sizes: a plan of six
+# incr steps of 0.2 s each, the standby's 2 s of quiescence before it takes
+# over, the driver SIGKILLed after two results, and the deadlines before
+# and after the kill
+PROC_STEPS, PROC_WORK_S, PROC_TAKEOVER_S = 6, 0.2, 2.0
+PROC_KILL_AFTER = 2
+PROC_DEADLINES_S = (60.0, 90.0)
+PROC_DRIVER_ID = "driver-main"
 # slice 9a's TrimPolicy (slice 1's run writes 239 entries, so a maintain
 # falls mid-run; the entries kept below the low-water mark give the reader
 # thread room), and the deadline of each of slice 9's waits
@@ -1557,6 +1585,11 @@ def main() -> None:
     # a lost append reply, on slice 1's parameters (11a ran in slice 1)
     netted = slice_netbus(smi, paged)
 
+    # 4e. slice 12: the components as OS processes: slice 1's run with its
+    # log on a bus-server process, that process SIGKILLed mid-run, and the
+    # process failover drill
+    proc = slice_procs(smi, paged)
+
     # 5. slice 3: governed static serving at full qwen3_4b width, on slice
     # 1's parameters, which are freed after it
     flash = slice_qwen3_static(smi, paged.pop("cfg"), paged.pop("params"))
@@ -1591,7 +1624,7 @@ def main() -> None:
     # kernel runs on the main paths
     launches = {
         "paged_attention": paged["launches"] + spawned["9a"]
-        + spawned["9b"] + pooled + netted + new["paged_attention"],
+        + spawned["9b"] + pooled + netted + proc + new["paged_attention"],
         "ssd_intra": ssd["launches"] + last["ssd_intra"]
         + entry["ssd_intra"],
         "flash_attention": flash["launches"] + new["flash_attention"]
@@ -1604,6 +1637,8 @@ def main() -> None:
           f"healthy qwen3_4b worker and the failing one's replacement) + "
           f"{netted} (slice 11, qwen3_4b with its log behind a bus server: "
           f"11a, 11b across a restart, 11c with a lost append reply) + "
+          f"{proc} (slice 12, qwen3_4b with its log on a bus-server "
+          f"process: 12a, 12b across its SIGKILL) + "
           f"{new['paged_attention']} (slice 5, chatglm3_6b continuous); "
           f"ssd_intra {launches['ssd_intra']} = {ssd['launches']} (slice "
           f"2, mamba2_780m static) + {last['ssd_intra']} (slice 6, "
@@ -1795,13 +1830,15 @@ class _NetLog:
         self.backing = SqliteBus(path)
         self.server = BusServer(self.backing).start()
         self.epochs = [self.server.epoch]
-        self.restart_s = None
-        host, port = self.server.address
-        self.bus = NetBus(f"{host}:{port}", client_id="chip-smoke")
+        self.restarts, self.restart_s = 0, None
+        self.restarted_at = self.reconnect_s = None
+        host, self.port = self.server.address
+        self.bus = NetBus(f"{host}:{self.port}", client_id="chip-smoke")
 
     def restart(self):
         host, port = self.server.address
-        t0 = time.perf_counter()
+        t0 = self.restarted_at = time.perf_counter()
+        self.restarts += 1
         self.server.close()
         while True:
             try:
@@ -1821,10 +1858,83 @@ class _NetLog:
         self.backing.close()
 
 
-def _restart_mid_run(n_results):
-    """11b's drill: once the Result of the ``n_results``-th serve_step
-    intent has been acknowledged, the server restarts (a wrapper on the
-    client's ``append_many``, between two intents)."""
+class _ProcLog:
+    """Slice 12's log on a bus-server process: the port's
+    ``BusServerProcess("sqlite", path, ...)`` (the server's own
+    ``SqliteBus``, group commit on) and a ``NetBus`` client of it.
+    ``restart`` SIGKILLs the server (``BusServerProcess.kill``) and starts
+    a successor on the same file and port through the port's CLI
+    (``_bus_server_cli``); ``close`` closes the client, then kills and
+    waits for every server process. ``epochs`` holds the server epoch the
+    client first saw."""
+
+    def __init__(self, path):
+        from repro_torch.core import NetBus
+        from repro_torch.launch.procs import BusServerProcess
+        self.path, self.workdir = path, path + ".run"
+        os.makedirs(self.workdir)
+        self.server = BusServerProcess("sqlite", path, self.workdir)
+        self.successor, self.bus = None, None
+        self.restarts, self.restart_s = 0, None
+        self.restarted_at = self.reconnect_s = None
+        try:
+            self.port = int(self.server.address.rsplit(":", 1)[1])
+            self.bus = NetBus(self.server.address, client_id="chip-smoke")
+        except BaseException:
+            self.server.kill()
+            raise
+        self.epochs = [self.bus.server_epoch]
+
+    def restart(self):
+        t0 = self.restarted_at = time.perf_counter()
+        self.restarts += 1
+        self.server.kill()
+        self.successor = _bus_server_cli(self.path, self.port, self.workdir)
+        self.restart_s = time.perf_counter() - t0
+
+    def close(self):
+        try:
+            if self.bus is not None:
+                self.bus.close()
+        finally:
+            self.server.kill()
+            if self.successor is not None:
+                self.successor.kill()
+                self.successor.wait(timeout=REBIND_DEADLINE_S)
+
+
+def _bus_server_cli(path, port, workdir):
+    """A bus server over the SQLite file ``path`` on ``port``, started as
+    ``python -m repro_torch.launch.bus_server --backend sqlite --path
+    <path> --port <port> --port-file ...``, its output in a file in
+    ``workdir``. Returns the process once it has published its port;
+    raises if it exits first or REBIND_DEADLINE_S passes."""
+    from repro_torch.launch.procs import _child_env
+    port_file = os.path.join(workdir, f"successor-{port}.port")
+    with open(os.path.join(workdir, "successor.log"), "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.bus_server",
+             "--backend", "sqlite", "--path", path, "--port", str(port),
+             "--port-file", port_file],
+            env=_child_env(), stdout=log, stderr=subprocess.STDOUT)
+    deadline = time.perf_counter() + REBIND_DEADLINE_S
+    while not os.path.exists(port_file):
+        if proc.poll() is not None or time.perf_counter() > deadline:
+            proc.kill()
+            proc.wait(timeout=REBIND_DEADLINE_S)
+            raise RuntimeError(f"the successor bus server did not bind port "
+                               f"{port} (exit {proc.returncode}; its output "
+                               f"in {workdir}/successor.log)")
+        time.sleep(0.005)
+    return proc
+
+
+def _restart_mid_run(n_results, label="11b"):
+    """11b's and 12b's drill: once the Result of the ``n_results``-th
+    serve_step intent has been acknowledged, the server restarts (a
+    wrapper on the client's ``append_many``, between two intents); the
+    seconds from the restart to the first append acknowledged over a new
+    connection go to ``net.reconnect_s``."""
     @contextlib.contextmanager
     def drill(net):
         from repro_torch.core.entries import PayloadType
@@ -1832,6 +1942,9 @@ def _restart_mid_run(n_results):
 
         def append_then_restart(payloads):
             positions = append_many(payloads)
+            if net.restarted_at is not None and net.reconnect_s is None \
+                    and net.bus.n_reconnects:
+                net.reconnect_s = time.perf_counter() - net.restarted_at
             for p in payloads:
                 if p.type == PayloadType.INTENT \
                         and p.body["kind"] == "serve_step":
@@ -1844,11 +1957,12 @@ def _restart_mid_run(n_results):
             return positions
         net.bus.append_many = append_then_restart
         yield
-        if len(net.epochs) != 2:
-            raise AssertionError(f"11b: {len(done)} serve_step Results, "
-                                 f"the server restarted "
-                                 f"{len(net.epochs) - 1} times, want once "
-                                 f"after Result {n_results}")
+        if net.restarts != 1 or net.reconnect_s is None:
+            raise AssertionError(f"{label}: {len(done)} serve_step Results, "
+                                 f"the server restarted {net.restarts} "
+                                 f"times, want once after Result "
+                                 f"{n_results}, and an append acknowledged "
+                                 f"over a new connection after it")
     return drill
 
 
@@ -1887,10 +2001,12 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
     from repro_torch.core import committed_unexecuted, make_bus
     t0 = time.perf_counter()
     label = name or backend
-    sqlite = backend in ("sqlite", "net")  # net: SQLite behind the server
+    # net, proc: SQLite behind the server
+    sqlite = backend in ("sqlite", "net", "proc")
     path = None if backend == "memory" else os.path.join(
         tmp, f"serve-{label}" + (".db" if sqlite else ""))
-    net = _NetLog(path) if backend == "net" else None
+    net = {"net": _NetLog, "proc": _ProcLog}.get(backend)
+    net = net(path) if net else None
     bus = net.bus if net else make_bus(backend, path)
     try:
         with drill(net) if drill else contextlib.nullcontext():
@@ -1969,16 +2085,19 @@ def _serve_on_bus(cfg, params, requests, served, blocked, backend, tmp,
         run["net"] = dict(reconnects=bus.n_reconnects,
                           requests=bus.n_requests, epochs=net.epochs,
                           client_epoch=bus.server_epoch,
-                          restart_s=net.restart_s, entries=len(log),
+                          restart_s=net.restart_s,
+                          reconnect_s=net.reconnect_s, entries=len(log),
                           flagged=flagged)
+        stop = "SIGKILL" if backend == "proc" else "close"
         print(f"  the {label} client over the run: {bus.n_requests} "
               f"requests, {bus.n_reconnects} reconnects; server epochs "
               f"{[e[:8] for e in net.epochs]}, the client's last "
               f"{bus.server_epoch[:8]}"
               + ("" if net.restart_s is None else
-                 f"; the restart (close, successor bound to port "
-                 f"{net.server.address[1]}) took "
-                 f"{1e3 * net.restart_s:.3f} ms")
+                 f"; the restart ({stop}, successor bound to port "
+                 f"{net.port}) took {1e3 * net.restart_s:.3f} ms, and "
+                 f"{1e3 * net.reconnect_s:.3f} ms from the {stop} to the "
+                 f"first append acknowledged over a new connection")
               + f" | on {smi}")
     del eng, run["engine"]
     torch.cuda.empty_cache()
@@ -4282,6 +4401,229 @@ def slice_netbus(smi, paged):
           f"{runs['11c']['net']['reconnects']} (11c); walls "
           f"{runs['11b']['wall']:.3f} s and {runs['11c']['wall']:.3f} s; "
           f"slice 11 paged launches {launches}; 11b and 11c took "
+          f"{time.perf_counter() - t0:.2f} s | on {smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 12: the components as OS processes (12a is slice 1's run on a
+# bus-server process)
+# ---------------------------------------------------------------------------
+
+def process_failover(root, procs, core, standby_id=PROC_DRIVER_ID):
+    """The process failover drill of the reference's
+    ``tests/test_netbus.py:277-342``: a bus-server process over SQLite in
+    ``root``, and executor, voters, standby and driver processes. Each
+    role is spawned by ``procs[role]``, a package's ``launch.procs``
+    (``procs["server"]`` spawns the server); the standby's driver id is
+    ``standby_id``. A client of ``core`` (a namespace with a package's
+    ``netbus``, ``acl`` and ``entries``) sets the ``first_voter`` policy
+    and mails ``go``; once the primary's PROC_KILL_AFTER-th result is on
+    the log the driver is SIGKILLed, and the plan must then complete. The
+    standby is spawned once the primary's election is on the log (the
+    reference's test spawns it just before the driver, so a primary that
+    took longer than the standby's quiescence timeout to start would race
+    it). Every wait is on the log up to a deadline, and every child is
+    killed and waited for on the way out. Returns the record
+    (``process_failover_want`` is what the reference's test asserts of it)
+    and the seconds from the kill to the last driver election and from
+    there to the ``done`` InfOut, on the server's clock."""
+    E, T = core.entries, core.entries.PayloadType
+    spec = {"driver_id": PROC_DRIVER_ID,
+            "plans": procs["driver"].incr_plans(PROC_STEPS,
+                                                work_s=PROC_WORK_S),
+            "snapshot_dir": os.path.join(root, "snaps"),
+            "takeover_after_s": PROC_TAKEOVER_S}
+    children, cli = {}, None
+    with procs["server"].BusServerProcess(
+            "sqlite", os.path.join(root, "bus.db"), root) as srv:
+        try:
+            address = srv.address
+
+            def spawn(role, role_spec):
+                children[role] = procs[role].spawn_component(role, address,
+                                                             role_spec)
+            spawn("executor", {})
+            spawn("voters", {})
+            spawn("driver", spec)
+            cli = core.netbus.NetBus(address, client_id="drill-cli")
+            admin = core.acl.BusClient(cli, "admin", "admin")
+            admin.append(E.policy("decider", {"mode": "first_voter"}))
+            admin.append(E.mail("go"))
+
+            def elections():
+                return [e for e in cli.read(0, types=(T.POLICY,))
+                        if e.body.get("scope") == "driver"]
+
+            def results():
+                return [e for e in cli.read(0, types=(T.RESULT,))
+                        if not e.body.get("recovered")]
+
+            def done():
+                return [e for e in cli.read(0, types=(T.INF_OUT,))
+                        if e.body["plan"].get("done")]
+
+            def until(ready, deadline_s, what):
+                deadline = time.monotonic() + deadline_s
+                while not ready():
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"{what} in {deadline_s} s: "
+                                             f"{len(results())} results")
+                    cli.wait(cli.tail(), timeout=1.0)
+
+            until(elections, PROC_DEADLINES_S[0], "the primary driver did "
+                  "not elect itself")
+            spawn("standby", dict(spec, driver_id=standby_id))
+            until(lambda: len(results()) >= PROC_KILL_AFTER,
+                  PROC_DEADLINES_S[0], "the primary driver made too few "
+                  "results")
+            killed_at = time.time()
+            procs["driver"].sigkill(children["driver"])
+            until(lambda: done() and len(results()) >= PROC_STEPS,
+                  PROC_DEADLINES_S[1], "the plan did not complete after "
+                  "the kill")
+            infouts = cli.read(0, types=(T.INF_OUT,))
+            elected = elections()
+            epochs = [e.body["policy"]["epoch"] for e in elected]
+            res = results()
+            rec = {"infouts": len(infouts),
+                   "intent ids": [e.body["intent_id"] for e in cli.read(
+                       0, types=(T.INTENT,))],
+                   "results": len(res),
+                   "all ok": all(e.body["ok"] for e in res),
+                   "values": sorted(e.body["value"]["value"] for e in res),
+                   "elected": [e.body["policy"]["elect"]
+                               for e in elected],
+                   "epoch steps": [b - a for a, b in zip(epochs,
+                                                         epochs[1:])]}
+            t_elect, t_done = elected[-1].realtime_ts, done()[0].realtime_ts
+        finally:
+            if cli is not None:
+                cli.close()
+            for role, p in children.items():
+                procs[role].sigkill(p)
+    return rec, {"kill_to_election_s": t_elect - killed_at,
+                 "election_to_done_s": t_done - t_elect}
+
+
+def process_failover_want():
+    """What the reference's test asserts of ``process_failover``'s record:
+    one InfOut a step and one for ``done`` across both driver incarnations
+    (the replay was silent), the lineage's intent ids with no gap or
+    duplicate, every step executed once and ok, two elections of the one
+    lineage at epochs one apart."""
+    return {"infouts": PROC_STEPS + 1,
+            "intent ids": [f"{PROC_DRIVER_ID}-i{i}"
+                           for i in range(PROC_STEPS)],
+            "results": PROC_STEPS, "all ok": True,
+            "values": list(range(1, PROC_STEPS + 1)),
+            "elected": [PROC_DRIVER_ID] * 2, "epoch steps": [1]}
+
+
+def slice_procs(smi, paged):
+    """Slice 12 on slice 1's parameters. 12a: slice 1's governed kernel run
+    with its log on a bus-server process (``_serve_on_bus`` on ``proc``);
+    12b: the same run with that process SIGKILLed after the Result of the
+    ceil(n/2)-th of 11a's n serve_step intents and a successor started on
+    the same file and port through the CLI. Each must give the memory
+    run's tokens and paged launches, every launch held to its plain
+    version (``_paged_checker``), and a read-back (by a fresh ``SqliteBus``
+    once the server processes are gone) of as many entries as 11a's log,
+    dense, with no ``_sched`` flag in the agent's view; 12b a reconnect
+    and a new server epoch. 12c: the process failover drill with the
+    port's ``procs`` for every role. Returns the paged launches of 12a and
+    12b."""
+    from types import SimpleNamespace
+    from repro_torch.core import acl, entries, netbus
+    from repro_torch.launch import procs
+    from repro_torch.serving import engine as engine_lib
+    cfg, params, a = paged["cfg"], paged["params"], paged["net"]
+    requests, blocked = paged["requests"], paged["blocked"]
+    served = {r["req_id"]: r for r in requests if r["tenant"] != "blocked"}
+    after = math.ceil(a["n_intents"] / 2)
+    print(f"[slice 12] 12a: slice 1's governed kernel run with its log on "
+          f"a bus-server process (repro_torch.launch.procs."
+          f"BusServerProcess over SQLite); 12b: that process SIGKILLed "
+          f"after the Result of serve_step intent {after} of "
+          f"{a['n_intents']}, a successor started through the CLI on the "
+          f"same file and port; on {smi}")
+    t0 = time.perf_counter()
+    runs, checks = {}, {}
+    kernel_fn = engine_lib.paged_attention
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-proc-") as tmp:
+            for key, name, drill in (
+                    ("12a", "proc", None),
+                    ("12b", "proc-sigkill", _restart_mid_run(after, "12b"))):
+                checks[key] = []
+                engine_lib.paged_attention = _paged_checker(checks[key])
+                runs[key] = _serve_on_bus(cfg, params, requests, served,
+                                          blocked, "proc", tmp, smi,
+                                          name=name, drill=drill)
+    finally:
+        engine_lib.paged_attention = kernel_fn
+    for key, run in runs.items():
+        n = run["net"]
+        _same_outputs(key, run["planner"].outputs, paged["outputs"])
+        if run["launches"] != a["launches"] or len(checks[key]) != \
+                run["launches"]:
+            raise AssertionError(f"{key}: {run['launches']} paged launches "
+                                 f"({len(checks[key])} held), 11a's run "
+                                 f"{a['launches']}")
+        if n["entries"] != a["entries"] or n["flagged"] != 0:
+            raise AssertionError(f"{key}: the log holds {n['entries']} "
+                                 f"entries, 11a's {a['entries']}, and the "
+                                 f"agent's view {n['flagged']} _sched "
+                                 f"flags: a batch is missing or twice")
+        _hold_launches(f"{key} paged_attention", checks[key],
+                       "plain with the kv heads rolled")
+    if runs["12a"]["net"]["reconnects"] != 0:
+        raise AssertionError("12a: the client reconnected")
+    b = runs["12b"]["net"]
+    if b["reconnects"] < 1 or b["client_epoch"] == b["epochs"][0]:
+        raise AssertionError(f"12b: {b['reconnects']} reconnects, the "
+                             f"client's epoch {b['client_epoch']} after "
+                             f"{b['epochs'][0]}")
+    gov = {k: 1e3 * (r["wall"] - r["model_s"]) / r["n_intents"]
+           for k, r in runs.items()}
+    launches = sum(r["launches"] for r in runs.values())
+    print(f"  12a and 12b: slice 1's tokens for all "
+          f"{len(paged['outputs'])} served requests and its "
+          f"{a['launches']} paged launches each, every launch held to "
+          f"plain; {a['entries']} entries each read back dense after the "
+          f"server processes were gone, 0 _sched flags; governance "
+          f"{gov['12a']:.3f} ms a serve_step intent on the server process "
+          f"beside 11a's in-process server's {paged['gov_ms']['net']:.3f} "
+          f"ms, SQLite's {paged['gov_ms']['sqlite']:.3f} ms and memory's "
+          f"{paged['gov_ms']['memory']:.3f} ms in this call (12b "
+          f"{gov['12b']:.3f} ms); 12b: SIGKILL to successor bound "
+          f"{1e3 * b['restart_s']:.3f} ms, to the first append acknowledged "
+          f"over a new connection {1e3 * b['reconnect_s']:.3f} ms, "
+          f"{b['reconnects']} reconnect, epochs {b['epochs'][0][:8]} -> "
+          f"{b['client_epoch'][:8]}; walls {runs['12a']['wall']:.3f} s and "
+          f"{runs['12b']['wall']:.3f} s | on {smi}")
+
+    role = {r: procs for r in ("server", "executor", "voters", "standby",
+                               "driver")}
+    t_drill = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-drill-") as tmp:
+        rec, times = process_failover(tmp, role, SimpleNamespace(
+            acl=acl, entries=entries, netbus=netbus))
+    if rec != process_failover_want():
+        raise AssertionError(f"12c: the drill's record {rec}, want "
+                             f"{process_failover_want()}")
+    print(f"  12c: the process failover drill (bus server, executor, "
+          f"voters, standby and driver as processes of the port's "
+          f"launch.procs; the driver SIGKILLed after {PROC_KILL_AFTER} "
+          f"results): {rec['infouts']} InfOuts, intent ids "
+          f"{rec['intent ids'][0]}..{rec['intent ids'][-1]}, results "
+          f"{rec['values']} each once, elections {rec['elected']} at "
+          f"epochs one apart; SIGKILL to the standby's election "
+          f"{times['kill_to_election_s']:.3f} s (its quiescence timeout "
+          f"{PROC_TAKEOVER_S} s), election to the done InfOut "
+          f"{times['election_to_done_s']:.3f} s; drill "
+          f"{time.perf_counter() - t_drill:.2f} s | on {smi}")
+    print(f"  slice 12 paged launches {launches}; slice 12 took "
           f"{time.perf_counter() - t0:.2f} s | on {smi}")
     return launches
 

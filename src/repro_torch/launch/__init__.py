@@ -9,12 +9,17 @@
 * ``bus_server`` — the network shared log's server, which fronts a memory,
   SQLite or KV log for ``NetBus`` clients (``python -m
   repro_torch.launch.bus_server --backend sqlite --path bus.db --port 0
-  --port-file bus.port``).
+  --port-file bus.port``);
+* ``procs`` — the components (driver, standby driver, voters, executor) as
+  OS processes of their own whose only channel is a ``NetBus`` to one bus
+  server (``python -m repro_torch.launch.procs --role driver --address
+  127.0.0.1:PORT --spec '{...}'``), and the helpers that spawn them and the
+  server as children (``BusServerProcess``, ``spawn_component``,
+  ``sigkill``).
 
 ``serve`` and ``train`` run on the card unless ``--device cpu`` is given,
 and raise without CUDA; ``dryrun`` allocates no tensor of a cell and needs
-no card, and ``bus_server`` runs no model. The reference's
+no card, and ``bus_server`` and ``procs`` run no model. The reference's
 ``launch/mesh.py`` builds a TPU device mesh and has no counterpart on one
-card. ``launch/procs.py`` (the components as processes of their own
-around a bus server) is not ported yet.
+card.
 """

@@ -227,8 +227,9 @@ def sc_push_wake(pkg, rec, root):
             waiter = pkg.netbus.NetBus(_addr(srv), client_id="waiter")
             appender = pkg.netbus.NetBus(_addr(srv), client_id="appender")
             out = {}
+            known = waiter.tail()  # read before the append can land
             t = threading.Thread(target=lambda: out.setdefault(
-                "woke", waiter.wait(waiter.tail(), timeout=DEADLINE_S)))
+                "woke", waiter.wait(known, timeout=DEADLINE_S)))
             t.start()
             time.sleep(0.1)
             before = waiter.n_requests
@@ -344,8 +345,12 @@ def sc_reconnect(pkg, rec, root):
                               c.server_epoch != first_epoch))
         rec.see("reconnected", c.n_reconnects >= 1)
         out = {}
+        # the waiter's reconnect and tail read come before the append: read
+        # in the thread, a slow reconnect could see the append's tail and
+        # then wait for one past it
+        known = w.tail(refresh=True)
         t = threading.Thread(target=lambda: out.setdefault(
-            "woke", w.wait(w.tail(refresh=True), timeout=DEADLINE_S)))
+            "woke", w.wait(known, timeout=DEADLINE_S)))
         t.start()
         time.sleep(0.1)
         c.append(E.mail("wake the resubscribed waiter"))
@@ -407,24 +412,48 @@ def test_in_process_records_are_equal(tmp_path, scenario):
     assert all(joined)
 
 
-def test_in_process_records_say_what_the_reference_tests_assert(tmp_path):
-    recs = {sc.__name__: _run(sc, PORT, tmp_path / sc.__name__)
-            for sc in (sc_push_wake, sc_dedupe, sc_reconnect,
-                       sc_role_acl, sc_lazy_wire, sc_mixed_codec)}
-    wake = recs["sc_push_wake"]
-    assert wake.get("woke") is True and wake.get(
-        "requests of the waiter's") == 0
-    dup = recs["sc_dedupe"]
-    assert dup.get("try 1") == [[0], None] and dup.get("try 2") == [
-        [0], True] and dup.get("tail") == 1
-    again = recs["sc_reconnect"]
-    assert again.get("new epoch") == [True, True]
-    assert again.get("reconnected") and again.get("woke") is True
-    acl = recs["sc_role_acl"]
-    assert acl.get("voter mails")[:2] == ("raised", "AclError")
-    assert acl.get("unknown role")[:2] == ("raised", "ConnectionError")
-    assert recs["sc_lazy_wire"].get("read") == [16, 0]
-    assert recs["sc_mixed_codec"].get("codecs") == ["json", "binary"]
+def _push_wake_says(rec):
+    assert rec.get("waiter joined") and rec.get("woke") is True
+    assert rec.get("requests of the waiter's") == 0
+
+
+def _dedupe_says(rec):
+    assert rec.get("try 1") == [[0], None]
+    assert rec.get("try 2") == [[0], True] and rec.get("tail") == 1
+
+
+def _reconnect_says(rec):
+    assert rec.get("new epoch") == [True, True]
+    assert rec.get("reconnected")
+    assert rec.get("waiter joined") and rec.get("woke") is True
+
+
+def _role_acl_says(rec):
+    assert rec.get("voter mails")[:2] == ("raised", "AclError")
+    assert rec.get("unknown role")[:2] == ("raised", "ConnectionError")
+
+
+def _lazy_wire_says(rec):
+    assert rec.get("read") == [16, 0]
+
+
+def _mixed_codec_says(rec):
+    assert rec.get("codecs") == ["json", "binary"]
+
+
+REFERENCE_SAYS = [(sc_push_wake, _push_wake_says),
+                  (sc_dedupe, _dedupe_says),
+                  (sc_reconnect, _reconnect_says),
+                  (sc_role_acl, _role_acl_says),
+                  (sc_lazy_wire, _lazy_wire_says),
+                  (sc_mixed_codec, _mixed_codec_says)]
+
+
+@pytest.mark.parametrize("scenario,says", REFERENCE_SAYS,
+                         ids=[sc.__name__[3:] for sc, _ in REFERENCE_SAYS])
+def test_in_process_records_say_what_the_reference_tests_assert(
+        tmp_path, scenario, says):
+    says(_run(scenario, PORT, tmp_path))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """``repro_torch``, ``chip_smoke.py``, ``tools/kernel_ab.py`` and the
 port's examples stand alone: no import of ``jax`` or of the reference
 package ``repro``, by an AST scan of every module and by importing the
-serving and the training modules, the launchers, the bus server and the
-core package (the agent kernel, the supervisor and the network log among
-it) in a fresh interpreter; and the port's bus server runs as a process
-of its own for a port ``NetBus``."""
+serving and the training modules, the launchers, the bus server, the
+process harness and the core package (the agent kernel, the supervisor and
+the network log among it) in a fresh interpreter; and the port's bus
+server runs as a process of its own for a port ``NetBus``, and its
+component CLI (``python -m repro_torch.launch.procs``) answers ``--help``
+as a process of its own."""
 import ast
 import os
 import subprocess
@@ -64,7 +66,8 @@ def test_port_modules_exist():
             "repro_torch/distributed/analytic.py",
             "repro_torch/distributed/roofline.py",
             "repro_torch/core/netbus.py",
-            "repro_torch/launch/bus_server.py"} <= names
+            "repro_torch/launch/bus_server.py",
+            "repro_torch/launch/procs.py"} <= names
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} >= {"paged_attention.cu", "ssd_scan.cu",
                      "flash_attention.cu"}
@@ -113,6 +116,28 @@ def test_core_import_pulls_in_neither():
 
 def test_bus_server_import_pulls_in_neither():
     _import_pulls_in_neither("repro_torch.launch.bus_server")
+
+
+def test_procs_import_pulls_in_neither():
+    _import_pulls_in_neither("repro_torch.launch.procs")
+
+
+def test_procs_cli_runs_as_a_process_of_its_own(tmp_path):
+    """``python -m repro_torch.launch.procs --help`` lists the four roles
+    and exits 0 within 20 s; the process is killed and waited for, whatever
+    happens."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.procs", "--help"],
+        env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=20.0)
+    finally:
+        proc.kill()
+        proc.wait(timeout=20.0)
+    assert proc.returncode == 0, err
+    assert "--role" in out and "{driver,executor,standby,voters}" in out
 
 
 def test_bus_server_runs_as_a_process_of_its_own(tmp_path):
